@@ -6,7 +6,7 @@ round-5 analytic LINE spectrum (ops/toeplitz.py::periodic_line_bins)
 end-to-end under MCMC — the path that previously fell back silently to
 the FFT spectrum whose f32 tail biased the noise posterior.  Short by
 default (this is a sampling-works demonstration, not the acceptance
-run; the converged SE acceptance row lives in BASELINE.md round-5).
+run).
 
 Env knobs: P1M_N, P1M_CHAINS, P1M_WARMUP, P1M_SAMPLES, P1M_SAVE.
 """

@@ -1,13 +1,12 @@
-"""Fully Bayesian hyperparameter sampling at N=65536 on ONE chip.
+"""Fully Bayesian hyperparameter sampling at N=65536 on ONE device.
 
 The round-2 headline demo (VERDICT r1 item 2): ChEES-HMC over (h, w, s)
 where every leapfrog step evaluates the log marginal likelihood
 matrix-free — pivoted-Cholesky-preconditioned CG for the solves, SLQ for
 the logdet, Hutchinson for the gradient (fixed probes; see
-inference/gp_model.py::make_log_posterior_iterative).  Dense inference at
-this N is impossible on the chip (K alone is 17 GB) and the f64 CPU
-reference could not even finish the kernel build + factorization
-(BASELINE.md round 1).
+inference/gp_model.py::make_log_posterior_iterative).  Dense inference
+per leapfrog at this N means a 17 GB K and an n^3 factorization at
+every step.
 
 This is a short demonstration chain — enough draws to measure s/draw and
 verify finiteness/acceptance, not a production posterior.  Env knobs:

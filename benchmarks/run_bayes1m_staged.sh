@@ -1,9 +1,9 @@
 #!/bin/bash
-# Supervisor for demo_bayes1m_staged.py: restart on watchdog aborts
+# Supervisor for demo_bayes1m_staged.py: restart on stall aborts
 # (exit 42) or crashes until DONE is printed, with a bounded number of
 # attempts.  Progress is monotone via the stage checkpoint.
 cd "$(dirname "$0")/.." || exit 1
-LOG=${D1M_LOG:-benchmarks/bayes1m_r5_staged.log}
+LOG=${D1M_LOG:-chiprun_out/bayes1m_staged.log}
 MAX_ATTEMPTS=${D1M_ATTEMPTS:-60}
 for i in $(seq 1 "$MAX_ATTEMPTS"); do
   echo "=== attempt $i $(date +%H:%M:%S) ===" >> "$LOG"

@@ -12,8 +12,8 @@ Runs small (N=400) on CPU so it is executable anywhere:
 
     env JAX_PLATFORMS=cpu PYTHONPATH=. python docs/examples/bayesian_large_n.py
 
-On a TPU chip the same code runs at N=65536 (see BASELINE.md round-2
-measurements) — scale ``n``, raise ``precond_rank`` to ~3 * range /
+On a GPU the same code runs at N=65536 — scale ``n``, raise
+``precond_rank`` to ~3 * range /
 lengthscale, and keep ``block_size`` at 2048.
 """
 

@@ -6,7 +6,7 @@ closed-form log-density in the Fourier basis — three FFT/elementwise
 ops per posterior evaluation, deterministic, differentiated by plain
 autodiff (ops/toeplitz.py::whittle_log_marginal).  That is the honest
 objective at N ~ 10^6: the stochastic PCG+SLQ surrogate was measured to
-acquire an f32 systematic bias at this scale (STATUS.md round-2), while
+acquire an f32 systematic bias at this scale (round 2), while
 the Whittle density is exact for its (asymptotically equivalent) model.
 
 Two design points matter at scale (both measured failures, both fixed):
@@ -16,7 +16,7 @@ Two design points matter at scale (both measured failures, both fixed):
   which at N=2^20 is the same order as a realistic noise variance — the
   old clamped-FFT spectrum erased the noise parameter from the
   high-frequency bins and manufactured a spurious posterior mode
-  (BASELINE.md round-4 forensics).  SE/Matern kernels use the aliased
+  (round-4 forensics).  SE/Matern kernels use the aliased
   Bochner density, the periodic kernel its exact folded line spectrum,
   and SE x periodic products the line/density convolution (round 5) —
   the noise stays strictly additive in every bin.
@@ -30,8 +30,8 @@ Runs small (n=4096) on CPU so it is executable anywhere:
     env JAX_PLATFORMS=cpu PYTHONPATH=. python docs/examples/bayesian_million.py
 
 The full N=2^20, 16-chain acceptance run is benchmarks/demo_bayes1m.py;
-its converged round-5 record (split-Rhat, ESS, posterior moments vs the
-generative noise) lives in BASELINE.md.
+its converged record (split-Rhat, ESS, posterior moments vs the
+generative noise) is for the benchmark to take on the GPU (ROADMAP S6).
 """
 
 import jax

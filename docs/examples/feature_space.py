@@ -1,8 +1,8 @@
 """Random-feature GP regression: the O(n F^2) feature-space path.
 
 Exact Bayesian linear regression in F spectral features
-(models/rff.py): no kernel matrix, no CG — one blocked MXU sweep builds
-the F x F normal equations, so n can be 10^6+ on one chip for scattered
+(models/rff.py): no kernel matrix, no CG — one blocked matmul sweep builds
+the F x F normal equations, so n can be 10^6+ on one device for scattered
 inputs in any dimension.  Accuracy is the O(1/sqrt F) feature
 approximation of the kernel; this example measures it against the dense
 exact GP.

@@ -1,12 +1,12 @@
 """Large-N exact GP: three regimes, three mechanisms (BASELINE config #4).
 
-1. dense single-chip   — N up to ~16k in f32 on one 16 GB chip
-   (`fit`, XLA Cholesky; measured 45 ms at N=16384).
-2. distributed dense   — N beyond one chip's HBM: block-cyclic Cholesky
+1. dense single-device — N up to the device's memory (K is n^2 floats)
+   (`fit`, XLA's Cholesky: cuSOLVER on the GPU).
+2. distributed dense   — N beyond one device's memory: block-cyclic Cholesky
    over the mesh (`parallel.fit_blockcyclic`), no device ever holds K.
 3. matrix-free         — N beyond dense storage anywhere: CG + SLQ
    (`fit_iterative`), O(N * block) memory, kernel strips generated on
-   the fly; a single chip handles N=65k+.
+   the fly (fused on the GPU); a single device handles N=65k+.
 
 This example runs small shapes so it works on any backend; scale N up on
 real hardware.

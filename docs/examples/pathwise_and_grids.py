@@ -11,8 +11,7 @@ Two round-2 capabilities on one toy problem:
 2. **Toeplitz structure** (ops/toeplitz.py): on an evenly spaced grid
    every stationary kernel matrix is symmetric Toeplitz, so
    ``structure="toeplitz"`` turns each matvec into an O(n log n) FFT
-   product with a free circulant preconditioner (measured on a TPU chip:
-   24x end-to-end at N=65k; N=2^20 fits in ~3.5 s).
+   product with a free circulant preconditioner.
 
 3. **SKI / KISS-GP** (ops/ski.py): scattered inputs interpolated onto an
    inducing grid (K ~= W K_g W^T, 4-tap cubic rows in W) keep the FFT

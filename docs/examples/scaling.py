@@ -4,9 +4,10 @@
 Runs on any device count — try
     env JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         PYTHONPATH=. python docs/examples/scaling.py
-for an 8-device virtual mesh, or unmodified on a TPU slice.  On a
-multi-host pod slice call ``initialize_cluster()`` first (reads the TPU
-pod metadata) and launch the same script on every host.
+for an 8-device virtual mesh, or unmodified on a GPU host (all of its
+cards).  Across hosts call ``initialize_cluster()`` first (it reads
+JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) and launch
+the same script on every host (docs/multihost.md).
 """
 
 import jax
@@ -30,14 +31,14 @@ def main(seed=0):
     print("cluster:", info)
 
     rng = np.random.default_rng(seed)
-    n = 96  # kept small so the example is quick on a CPU mesh; scale up on TPU
+    n = 96  # kept small so the example is quick on a CPU mesh; scale up on GPUs
     x = np.sort(rng.uniform(-np.pi, np.pi, n))
     y = np.sin(2 * x) + 0.1 * rng.standard_normal(n)
     kernel = gpt.GaussianKernel(h=jnp.asarray(1.0), w=jnp.asarray(1.0))
 
     n_dev = len(jax.devices())
 
-    # --- chain parallelism: one population, adaptation pooled over ICI ---
+    # --- chain parallelism: one population, adaptation pooled by collectives ---
     mesh = make_chain_mesh()
     n_chains = 4 * n_dev
     log_post = make_log_posterior(kernel, x, y, jitter=1e-6)

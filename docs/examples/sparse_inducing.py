@@ -1,8 +1,8 @@
 """Sparse GP regression with inducing points (SGPR, models/sgpr.py).
 
 The Titsias collapsed bound: m data-placed inducing points summarize n
-training points through one blocked O(n m^2) MXU sweep — scattered
-inputs at n ~ 1e6 on one chip, calibrated variances, no CG.  This
+training points through one blocked O(n m^2) matmul sweep — scattered
+inputs at n ~ 1e6 on one device, calibrated variances, no CG.  This
 example (CPU-runnable, f64):
 
 1. fits SGPR with kmeans-selected inducing points and compares against
@@ -27,7 +27,7 @@ from gaussian_processes_tpu.models.sgpr import (
 )
 
 # ---- data: 5k scattered points (sized for a CPU-runnable example;
-# the same code runs n ~ 1e6 on a chip — see bench.py's sgpr section)
+# the same code runs n ~ 1e6 on a GPU — see bench.py's sgpr section)
 rng = np.random.default_rng(0)
 n = 5_000
 x = jnp.asarray(np.sort(rng.uniform(-2.0, 2.0, n)))
@@ -61,8 +61,8 @@ print(f"MLE: h={float(post_mle.kernel.params[0]):.3f} "
       f"noise={float(post_mle.noise):.3f} (true data noise 0.1)")
 
 # ---- 3. Bayesian hyperparameters on the SGPR surrogate (a 1.5k
-# subset and short chains keep this CPU example quick; on a chip the
-# full-n surrogate costs ~1.5 ms/leapfrog at n=2e3 and scales O(n m^2))
+# subset and short chains keep this CPU example quick; the full-n
+# surrogate scales O(n m^2) per leapfrog)
 from gaussian_processes_tpu.inference import chees, gp_model
 
 xs, ys = x[::4], y[::4]

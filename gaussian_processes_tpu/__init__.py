@@ -1,4 +1,4 @@
-"""gaussian_processes_tpu — a TPU-native Gaussian-process inference engine.
+"""gaussian_processes_tpu — a Gaussian-process inference engine in JAX.
 
 A brand-new framework (not a port) with the capability set of the reference
 library ``jhamrick/gaussian_processes`` (see SURVEY.md; the reference mount
@@ -12,16 +12,16 @@ was empty, so citations are to the reconstructed layout tagged [R]):
   with respect to hyperparameters (reference: gp/gp.py [R]).
 * A memoizing ``GP`` object mirroring the reference API, built on top of a
   functional, ``jit``-able core (``fit`` / ``predict`` / ``GPPosterior``).
-* What the reference leaves to external tools, built in TPU-first:
+* What the reference leaves to external tools, built in:
   type-II MLE (optax), fully Bayesian hyperparameter inference via
-  from-scratch vectorized NUTS/HMC, Pallas tiled kernel-matrix
-  construction, and multi-host chain sharding over a ``jax.sharding.Mesh``.
+  from-scratch vectorized NUTS/HMC, fused Pallas kernel-matrix
+  products for the GPU, and chain sharding over a ``jax.sharding.Mesh``.
 
-Layer map (TPU-native analogue of SURVEY.md §2):
+Layer map (analogue of SURVEY.md §2):
 
     L2  models/   GP inference (functional core + reference-parity object)
     L1  models/   kernels (pure functions + pytree params, analytic derivs)
-    L0  ops/      Pallas TPU kernels (tiled pairwise kernel build),
+    L0  ops/      fused Pallas GPU kernels (kernel matvec / jacvec),
                   blocked/distributed Cholesky  — the native layer
         parallel/ mesh + shard_map chain sharding, collectives
         inference/ NUTS/HMC, adaptation, type-II MLE

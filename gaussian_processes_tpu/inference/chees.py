@@ -1,8 +1,8 @@
 """ChEES-HMC: jittered fixed-trajectory HMC with adaptive length.
 
-The TPU-first alternative to NUTS (SURVEY.md §7's "vectorized leapfrog"
-taken to its conclusion).  The chain-scaling study (BASELINE.md) shows
-NUTS saturating one chip well below linear chain scaling: every chain in
+The vectorized alternative to NUTS (SURVEY.md §7's "vectorized leapfrog"
+taken to its conclusion).  NUTS saturates one device well below linear
+chain scaling: every chain in
 the vmapped batch waits for the deepest tree each transition, so most
 lanes idle in masked while-loop iterations.  ChEES-HMC (Hoffman,
 Radul & Sountsov, 2021-style scheme, implemented from the published
@@ -17,7 +17,7 @@ algorithm description) removes the trees entirely:
       (||z' - mu||^2 - ||z - mu||^2) * ((z' - mu) . v') * u
   with v' the final velocity and mu the cross-chain mean — large
   populations of parallel chains are exactly what makes this estimator
-  work, matching the many-chip design of this framework;
+  work, matching the many-device design of this framework;
 * step size adapts by the same dual averaging as NUTS (target acceptance
   0.651, the optimal for plain HMC), the diagonal mass matrix by the
   same windowed Welford machinery, and all cross-chain reductions go
@@ -28,7 +28,7 @@ Same statistical gates as NUTS (tests/test_chees.py): analytic-target
 moments within Monte-Carlo error, determinism, adaptation sanity.
 
 CAVEAT — shared trajectory length on MULTISCALE posteriors (measured,
-round-4 1M-point run, BASELINE.md forensics): the population-shared T
+round-4 1M-point run): the population-shared T
 is adapted for the bulk of the chains.  A chain sitting in a mode whose
 curvature is much higher than the bulk's integrates ~full oscillation
 periods per trajectory and proposes a point near its start — it keeps
@@ -37,9 +37,9 @@ presents as a frozen chain at accept ≈ 1 (draw std exactly 0).  Watch
 ``n_frozen_chains``-style per-chain std alongside R-hat; if modes with
 very different scales are genuinely expected, NUTS (per-chain dynamic
 trajectories) is the robust choice — with the measured lockstep
-throughput cost (BASELINE.md "Sampler policy").
+throughput cost.
 
-Round-5 addendum (measured, BASELINE.md "period-resolution wall"):
+Round-5 addendum (measured, the "period-resolution wall"):
 a posterior coordinate can be narrower than the f32 ulp spacing of the
 sampling coordinate itself (the period of a periodic kernel at n=2^20:
 identification sharpens ~n^1.5).  Then NO f32 sampler moves that
@@ -160,7 +160,7 @@ def _chees_grad(z0, z1, v1, accept_prob, u_jitter, reduce_mean,
     NaN-safe: a blown-up trajectory (non-finite z1/v1, acceptance 0)
     must contribute zero, not poison the Adam moments for the rest of
     warmup (0 * NaN = NaN would otherwise stick T at NaN — observed in
-    f32 on-chip runs).
+    f32 accelerator runs).
     """
     finite = jnp.all(jnp.isfinite(z1), axis=-1) & jnp.all(
         jnp.isfinite(v1), axis=-1

@@ -104,15 +104,15 @@ def make_log_posterior_iterative(
     solves and Jacobian contractions run as O(n log n) FFT products
     (ops/toeplitz.py).  CAUTION at extreme scale in f32: the SLQ logdet
     was measured to acquire a systematic bias at N=2^20 (iteration-
-    independent, inflates lml at long lengthscales — STATUS.md round-2
-    session 3); for grid data at N >~ 10^5 prefer
+    independent, inflates lml at long lengthscales — round 2); for
+    grid data at N >~ 10^5 prefer
     ``make_log_posterior_whittle`` (exact circulant-model density,
     deterministic, ~1000x cheaper per step).
 
     The round-2 bridge (VERDICT r1 item 2) between the matrix-free stack
     (models/iterative_gp.py: PCG solves + SLQ logdet, O(n·block) memory,
     no N x N array) and the samplers: fully Bayesian hyperparameter
-    inference past the dense-Cholesky wall (~N=2e4/chip), per
+    inference past the dense-Cholesky wall, per
     BASELINE.json's north star crossed with config #4's N=65k.
 
     Mechanics: a ``jax.custom_vjp`` whose forward runs
@@ -153,6 +153,9 @@ def make_log_posterior_iterative(
             # are bit-identical to the fixed scan (masked freeze)
             early_exit=early_exit and precond_rank > 0,
             structure=structure,
+            # the samplers vmap this over chains; the fused Pallas kernels
+            # were timed only unbatched (ops/pairwise.py), so the strip
+            impl="strip",
         )
         lp = lml - 0.5 * jnp.sum(jnp.square((u - mu) / sd))
         g_u = g_theta * theta - (u - mu) / jnp.square(sd)
@@ -191,7 +194,7 @@ def make_log_posterior_whittle(
     aliased spectral density where the kernel has a closed form —
     required for honest noise inference at N ~ 1e6, where an f32 FFT
     of the sampled column cannot resolve the spectral tail below the
-    noise floor (round-4 forensics in BASELINE.md) — falling back to
+    noise floor (round-4 forensics) — falling back to
     the FFT spectrum otherwise.
 
     For uniform-grid data (assert with ``ops.toeplitz.is_uniform_grid``):
@@ -206,7 +209,7 @@ def make_log_posterior_whittle(
     ``center=True`` (default) returns the density SHIFTED by the
     constant -lml(exp(prior_mean)) by accumulating per-frequency-bin
     DIFFERENCES against the reference spectrum at the prior mean.
-    Why (measured at N=2^20, both chip and CPU f32): the absolute lml
+    Why (measured at N=2^20 in f32): the absolute lml
     is ~1e6 nats, where f32 resolution is ~0.06 nats — the same order
     as a well-tuned HMC energy error — so the MH acceptance becomes
     rounding noise at every step size and dual averaging collapses the

@@ -8,10 +8,10 @@ Capability parity with the reference's kernel contract
 * ``hessian(x1, x2) -> d2K/dtheta2``   (P, P, n, m)
 * ``params`` get / ``with_params`` (functional set), ``copy()``
 * ``sym_K()`` — the sympy symbolic kernel expression, used by the test
-  suite to validate the hand-written closed forms (the TPU analogue of the
+  suite to validate the hand-written closed forms (the analogue of the
   reference's "Cython matches sympy" gate).
 
-Design (TPU-first, SURVEY.md §7): kernels are frozen dataclasses registered
+Design (SURVEY.md §7): kernels are frozen dataclasses registered
 as JAX pytrees whose leaves are the hyperparameters, so a kernel can be an
 argument to ``jit``/``grad``/``vmap`` directly.  All pairwise math is
 vectorized jnp on the difference matrix; the hot tiled path lives in

@@ -17,15 +17,15 @@ likelihoods ship:
 Any likelihood exposing ``terms(f, y) -> (sum log p, d/df, W=-d2/df2)``
 with W >= 0 (log-concave) plugs in unchanged.
 
-TPU-first design decisions:
+Design decisions:
 
 * the Newton iteration uses the B = I + W^1/2 K W^1/2 parameterization
   (numerically safe for any W >= 0) with a FIXED iteration count under
   ``lax.scan`` — static shapes, one compiled program, vmappable over
   hyperparameter candidates; convergence is monitored, not branched on
   (the objective change per iteration is returned for inspection);
-* every factorization is one (n, n) Cholesky routed through the same
-  ``choose_cholesky`` MXU dispatch the regression path uses;
+* every factorization is one (n, n) XLA Cholesky, with the same
+  ``choose_solve`` dispatch the regression path uses;
 * the approximate log marginal likelihood is exactly R&W eq. 3.32,
   differentiable by plain autodiff through the whole Newton scan (the
   iteration converges to a fixed point, and at the mode the implicit
@@ -69,7 +69,7 @@ class LaplacePosterior:
     #: grad_lik at the exact mode, but numerically far better: the raw
     #: likelihood gradient's entries are O(residual)-sized and their
     #: smoothing to the O(1) predictive mean relies on a cancellation
-    #: that f32 mode error destroys (measured on chip: predictions
+    #: that f32 mode error destroys (measured in f32: predictions
     #: +-100 via grad_lik vs correct via a_hat at n=4096 Poisson).
     a_hat: jax.Array
     grad_lik: jax.Array  # (n,) d log p(y|f) / df at the mode
@@ -167,12 +167,8 @@ def fit_laplace(
     y = y.astype(dtype)
     lik = LogisticLikelihood() if likelihood is None else likelihood
 
-    from gaussian_processes_tpu.ops.blocked_cholesky import (
-        choose_cholesky,
-        choose_solve,
-    )
+    from gaussian_processes_tpu.ops.blocked_cholesky import choose_solve
 
-    chol = choose_cholesky(n)
     solve = choose_solve(n)
     with jax.default_matmul_precision("highest"):
         K = kernel(x, x) + jitter * jnp.eye(n, dtype=dtype)
@@ -188,7 +184,7 @@ def fit_laplace(
         sw = jnp.sqrt(jnp.maximum(w, 0.0))
         with jax.default_matmul_precision("highest"):
             B = jnp.eye(n, dtype=dtype) + sw[:, None] * K * sw[None, :]
-            L = chol(B)
+            L = jnp.linalg.cholesky(B)
             b = w * f + grad
             Kb = jnp.matmul(K, b, precision=_HI)
             v = solve(L, sw * Kb)
@@ -197,9 +193,9 @@ def fit_laplace(
             f_new = jnp.matmul(K, a_new, precision=_HI)
         # damped step: a fixed backtracking ladder picks the best-psi
         # candidate (including staying put), making the iteration
-        # MONOTONE in psi.  Why (measured on chip): undamped Newton with
-        # the Poisson link diverged at n=4096 f32 on TPU — the blocked
-        # Cholesky's f32 round-off injects O(1e-1) noise into f that
+        # MONOTONE in psi.  Why (measured): undamped Newton with the
+        # Poisson link diverged at n=4096 in f32 on an accelerator — the
+        # blocked Cholesky's f32 round-off injects O(1e-1) noise into f that
         # e^f amplifies each step (latent wandered to |f| ~ 70), while
         # the same code on CPU f32 converged.  The interpolation
         # a_t = (1-t) a + t a_new stays consistent with f_t because
@@ -228,7 +224,7 @@ def fit_laplace(
     sw = jnp.sqrt(jnp.maximum(w, 0.0))
     with jax.default_matmul_precision("highest"):
         B = jnp.eye(n, dtype=dtype) + sw[:, None] * K * sw[None, :]
-        L_B = chol(B)
+        L_B = jnp.linalg.cholesky(B)
     # R&W eq. 3.32: log q(y|X,theta) =
     #   -1/2 a^T f_hat + log p(y|f_hat) - sum log diag chol(B)
     lml = (

@@ -46,6 +46,7 @@ from jax.scipy.linalg import solve_triangular
 from gaussian_processes_tpu.models.base import Kernel
 
 _LOG_2PI = 1.8378770664093453
+_HI = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_dataclass
@@ -92,21 +93,16 @@ def build_kxx(kernel: Kernel, x: jax.Array, noise, jitter=0.0) -> jax.Array:
 
 def _chol_pieces(kernel, x, y, noise, jitter):
     Kxx = build_kxx(kernel, x, noise, jitter)
-    # factorization/solve choice is static (trace-time): XLA at small n
-    # / on CPU, the MXU-blocked recursion on TPU at large n
-    # (ops/blocked_cholesky.py; measured rounds 2-3 — at n=16384 the
-    # blocked TRSM cuts the two alpha solves 13.4 -> 2.0 ms)
-    from gaussian_processes_tpu.ops.blocked_cholesky import (
-        choose_cholesky,
-        choose_solve,
-    )
+    # XLA's factorization (cuSOLVER on the GPU); the solve choice is
+    # static (trace-time) and measured (ops/blocked_cholesky.py)
+    from gaussian_processes_tpu.ops.blocked_cholesky import choose_solve
 
-    L = choose_cholesky(x.shape[0])(Kxx)
+    L = jnp.linalg.cholesky(Kxx)
     solve = choose_solve(x.shape[0])
     alpha = solve(L, solve(L, y), trans=True)
     n = x.shape[0]
     log_marginal = (
-        -0.5 * jnp.dot(y, alpha)
+        -0.5 * jnp.dot(y, alpha, precision=_HI)
         - jnp.sum(jnp.log(jnp.diagonal(L)))
         - 0.5 * n * _LOG_2PI
     )
@@ -143,8 +139,8 @@ def predict(post: GPPosterior, xo) -> Tuple[jax.Array, jax.Array]:
     xo = jnp.asarray(xo)
     from gaussian_processes_tpu.ops.blocked_cholesky import choose_solve
 
-    # full-f32 matmuls: TPU's default bf16 multiply noise (~1e-2) is
-    # visible in predictive covariances otherwise
+    # full-f32 matmuls: a TF32 product (the GPU's DEFAULT for f32, ~1e-3
+    # relative) is visible in predictive covariances otherwise
     with jax.default_matmul_precision("highest"):
         Kxox = post.kernel(xo, post.x)
         mean = Kxox @ post.alpha
@@ -242,8 +238,6 @@ def loo_predictive(post: GPPosterior) -> Tuple[jax.Array, jax.Array, jax.Array]:
 
     with jax.default_matmul_precision("highest"):
         n = post.L.shape[0]
-        # blocked n-RHS solve on TPU at large n: XLA's native solve at
-        # n=16384 fails to compile (64 GB internal temp) — probe_solve_r3
         Linv = choose_solve(n)(post.L, jnp.eye(n, dtype=post.L.dtype))
         diag_A = jnp.sum(jnp.square(Linv), axis=0)  # diag(K^-1)
     mu = post.y - post.alpha / diag_A
@@ -260,7 +254,7 @@ def extend_posterior(
     """Online update: append k observations in O(n^2 k), not O((n+k)^3).
 
     Blocked Cholesky append via the Schur complement — one rectangular
-    triangular solve (MXU-friendly) plus a (k, k) factorization:
+    triangular solve (matmul-friendly) plus a (k, k) factorization:
 
         L' = [[L, 0], [B^T, chol(S)]],  B = L^-1 K(x, x_new),
         S  = K(x_new, x_new) + (s^2 + jitter) I - B^T B
@@ -271,7 +265,7 @@ def extend_posterior(
     from scratch on any data change (SURVEY.md §4.3); this is the
     framework's incremental path for streaming/serving workloads.
     (Point REMOVAL needs a Cholesky downdate — numerically delicate and
-    not MXU-shaped; refit instead.)
+    not matmul-shaped; refit instead.)
     """
     if jnp.asarray(post.noise).ndim != 0:
         raise ValueError(
@@ -338,28 +332,30 @@ def _grad_pieces(kernel, x, y, noise, jitter):
     L, alpha, lml = _chol_pieces(kernel, x, y, noise, jitter)
     n = x.shape[0]
     inv_L = choose_solve(n)(L, jnp.eye(n, dtype=L.dtype))
-    inv_K = inv_L.T @ inv_L
+    # explicit fp32: a TF32 product here (the GPU's DEFAULT) puts ~1e-3
+    # relative error into every entry of K^-1 and the trace terms
+    inv_K = jnp.matmul(inv_L.T, inv_L, precision=_HI)
     J = _full_jacobian(kernel, x, noise, L.dtype)
     return L, alpha, lml, inv_K, J
 
 
 def _grad_from_pieces(alpha, inv_K, J):
-    quad = jnp.einsum("i,pij,j->p", alpha, J, alpha)
-    trace = jnp.einsum("ij,pji->p", inv_K, J)
+    quad = jnp.einsum("i,pij,j->p", alpha, J, alpha, precision=_HI)
+    trace = jnp.einsum("ij,pji->p", inv_K, J, precision=_HI)
     return 0.5 * (quad - trace)
 
 
 def _hessian_from_pieces(kernel, x, noise, alpha, inv_K, J, dtype):
     H = _full_hessian(kernel, x, noise, dtype)             # (T, T, n, n)
-    Ja = jnp.einsum("pij,j->pi", J, alpha)                 # K_p alpha
-    KiJa = jnp.einsum("ij,pj->pi", inv_K, Ja)              # K^-1 K_p alpha
-    W = jnp.einsum("ij,pjk->pik", inv_K, J)                # K^-1 K_p
+    Ja = jnp.einsum("pij,j->pi", J, alpha, precision=_HI)                 # K_p alpha
+    KiJa = jnp.einsum("ij,pj->pi", inv_K, Ja, precision=_HI)              # K^-1 K_p alpha
+    W = jnp.einsum("ij,pjk->pik", inv_K, J, precision=_HI)                # K^-1 K_p
 
-    term1 = 0.5 * jnp.einsum("i,pqij,j->pq", alpha, H, alpha)
-    cross = jnp.einsum("pi,qi->pq", Ja, KiJa)
+    term1 = 0.5 * jnp.einsum("i,pqij,j->pq", alpha, H, alpha, precision=_HI)
+    cross = jnp.einsum("pi,qi->pq", Ja, KiJa, precision=_HI)
     term2 = -0.5 * (cross + cross.T)
-    term3 = 0.5 * jnp.einsum("qij,pji->pq", W, W)
-    term4 = -0.5 * jnp.einsum("ij,pqji->pq", inv_K, H)
+    term3 = 0.5 * jnp.einsum("qij,pji->pq", W, W, precision=_HI)
+    term4 = -0.5 * jnp.einsum("ij,pqji->pq", inv_K, H, precision=_HI)
     return term1 + term2 + term3 + term4
 
 
@@ -387,19 +383,20 @@ def _hessian_from_pieces_chunked(kernel, x, noise, alpha, inv_K, J, dtype):
     """
     P = kernel.n_params
     T = P + 1
-    Ja = jnp.einsum("pij,j->pi", J, alpha)                 # K_p alpha
-    KiJa = jnp.einsum("ij,pj->pi", inv_K, Ja)              # K^-1 K_p alpha
-    cross = jnp.einsum("pi,qi->pq", Ja, KiJa)
+    Ja = jnp.einsum("pij,j->pi", J, alpha, precision=_HI)                 # K_p alpha
+    KiJa = jnp.einsum("ij,pj->pi", inv_K, Ja, precision=_HI)              # K^-1 K_p alpha
+    cross = jnp.einsum("pi,qi->pq", Ja, KiJa, precision=_HI)
     term2 = -0.5 * (cross + cross.T)
-    W = jnp.einsum("ij,pjk->pik", inv_K, J)                # K^-1 K_p
-    term3 = 0.5 * jnp.einsum("qij,pji->pq", W, W)
+    W = jnp.einsum("ij,pjk->pik", inv_K, J, precision=_HI)                # K^-1 K_p
+    term3 = 0.5 * jnp.einsum("qij,pji->pq", W, W, precision=_HI)
 
     # term1 + term4, streamed per kernel-parameter pair (upper triangle)
     t14 = jnp.zeros((T, T), dtype=dtype)
     for p in range(P):
         for q in range(p, P):
             Hpq = kernel.hessian_pair(x, x, p, q)          # one (n, n) slice
-            t1 = 0.5 * jnp.dot(alpha, jnp.matmul(Hpq, alpha))
+            t1 = 0.5 * jnp.dot(alpha, jnp.matmul(Hpq, alpha, precision=_HI),
+                               precision=_HI)
             t4 = -0.5 * jnp.sum(inv_K * Hpq.T)             # tr(K^-1 H_pq)
             t14 = t14.at[p, q].add(t1 + t4)
             if q != p:

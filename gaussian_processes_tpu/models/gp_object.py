@@ -29,7 +29,7 @@ from gaussian_processes_tpu.models.base import Kernel
 class memoprop:
     """Property memoized in the instance cache; cleared on invalidation.
 
-    The TPU-friendly analogue of the reference's object-level memo cache
+    The jit-friendly analogue of the reference's object-level memo cache
     (SURVEY.md §3 C2): values are computed lazily on first access and
     dropped whenever x / y / s / params are assigned.
     """

@@ -1,10 +1,10 @@
 """Matrix-free exact-GP inference: CG solves + SLQ log marginal.
 
 The beyond-dense large-N path (SURVEY.md §6.7 carried past the dense
-wall): nothing here ever stores an N x N array, so a single chip's HBM
-ceiling moves from N ~ 2e4 (dense K + factor in 16 GB) to N limited only
-by O(N * block) workspace.  All compute is elementwise kernel-strip
-generation (VPU) + matmuls (MXU) — the shapes TPUs like.
+wall): nothing here ever stores an N x N array, so one device's memory
+ceiling moves from the dense K + factor to N limited only by O(N * block)
+workspace.  All compute is elementwise kernel-strip generation +
+matmuls, or on the GPU the fused Pallas matvec (ops/pairwise.py).
 
     fit_iterative(kernel, x, y, noise) -> IterativePosterior
         alpha = K^-1 y          by batched CG (kernel_matvec)
@@ -66,7 +66,8 @@ def _is_ski_kron(structure) -> bool:
     return isinstance(structure, ski_ops.SKIKronOperator)
 
 
-def _matvec(kernel, x, noise, jitter, block_size, structure="none"):
+def _matvec(kernel, x, noise, jitter, block_size, structure="none",
+            impl="auto"):
     if _is_ski_kron(structure):
         # scattered (n, D) inputs through a Kronecker inducing grid
         # (D-dim KISS-GP): W ((x)_d T_d) W^T + s^2 I per matvec
@@ -124,7 +125,7 @@ def _matvec(kernel, x, noise, jitter, block_size, structure="none"):
 
     def mv(v):
         return krylov.kernel_matvec(
-            kernel, x, v, noise, jitter, block_size=block_size
+            kernel, x, v, noise, jitter, block_size=block_size, impl=impl
         )
 
     return mv
@@ -169,7 +170,7 @@ def fit_iterative(
     separable kernel e.g. ARDGaussianKernel): K = (x)_d T_d, matvecs are
     D batched FFT sweeps, with the Kronecker-circulant preconditioner and
     exact-logdet(P) SLQ — exact GP inference (not a surrogate) at
-    N = prod(n_d) ~ 1e6 on one chip.
+    N = prod(n_d) ~ 1e6 on one device.
 
     ``replace_every``: residual-replacement cadence for the alpha PCG
     solve (ops/krylov.py pcg).  In f32 the CG recurrence residual drifts
@@ -438,6 +439,7 @@ def log_marginal_value_and_grad_iterative(
     precond_rank: int = 0,
     early_exit: bool = False,
     structure: str = "none",
+    impl: str = "auto",
 ):
     """(lml_estimate, d lml / d theta) matrix-free, theta = (kernel..., s).
 
@@ -450,7 +452,13 @@ def log_marginal_value_and_grad_iterative(
     ``structure="toeplitz"`` (uniform-grid x): the solve matvecs AND the
     Jacobian contractions K_p v become O(n log n) FFT products — dK/dtheta
     of a stationary kernel is stationary, so each J_p is Toeplitz too.
+
+    ``impl`` (unstructured path): ``"auto"`` takes the fused Pallas
+    matvec and Jacobian-matvec where ``ops/pairwise.py``'s defaults say
+    they win, ``"strip"`` keeps both on the XLA strip scan.
     """
+    if impl not in ("auto", "strip"):
+        raise ValueError(f"impl must be 'auto' or 'strip', not {impl!r}")
     x = jnp.asarray(x)
     y = jnp.asarray(y)
     noise = jnp.asarray(noise)
@@ -462,7 +470,7 @@ def log_marginal_value_and_grad_iterative(
 
     probes = jax.random.rademacher(key, (n, num_probes), dtype=dtype)
     rhs = jnp.concatenate([y[:, None], probes], axis=1)
-    mv = _matvec(kernel, x, noise, jitter, block_size, structure)
+    mv = _matvec(kernel, x, noise, jitter, block_size, structure, impl)
     if precond_rank > 0:
         probe_key, _ = jax.random.split(key)
         L = krylov.pivoted_cholesky(kernel, x, precond_rank)
@@ -568,13 +576,12 @@ def log_marginal_value_and_grad_iterative(
         JU = jax.vmap(lambda c: toeplitz.toeplitz_matvec(c, U))(jcols)
         J_alpha = JU[:, :, 0]
         J_z = JU[:, :, 1:]
-    elif (
-        jax.default_backend() == "tpu"
-        and pairwise.supports_fused_jacvec(kernel, x)
+    elif impl == "auto" and pairwise.fused_jacvec_default(
+        kernel, x, num_probes + 1
     ):
-        # fused Pallas path: each J_p tile is built in VMEM and
-        # contracted with [alpha, probes] on the MXU — the (P, n, b)
-        # Jacobian strips below never reach HBM
+        # fused Pallas path: each J_p tile is built and contracted with
+        # [alpha, probes] on the spot — the (P, n, b) Jacobian strips
+        # below never reach device memory
         U = jnp.concatenate([alpha[:, None], probes], axis=1)
         JU = pairwise.kernel_jacvec_fused(kernel, x, U)  # (P, n, r+1)
         J_alpha = JU[:, :, 0]

@@ -4,7 +4,7 @@ Why this exists: the dense ``sample_posterior`` (models/gp.py) draws
 f(xo) from the m-dimensional predictive MVN — it needs the dense Cholesky
 factor of the training kernel AND an O(m^3) factorization of the
 predictive covariance, so it stops where the dense fit stops (N ~ 2e4 on
-one chip) and scales badly in the number of query points.  Pathwise
+one device) and scales badly in the number of query points.  Pathwise
 conditioning (the "efficiently sampling functions from GPs" pattern of
 Wilson et al. 2020, implemented fresh here) instead samples *functions*:
 
@@ -12,11 +12,11 @@ Wilson et al. 2020, implemented fresh here) instead samples *functions*:
 
 with f_prior a draw from the GP prior and eps ~ N(0, s^2 I).  Conditioned
 on nothing else, f_post is exactly a posterior draw.  The three pieces
-map perfectly onto this framework's TPU paths:
+map perfectly onto this framework's paths:
 
 * f_prior via **spectral (random Fourier) features** — Bochner's theorem
   turns every stationary kernel here into a frequency distribution; a
-  prior draw is one (m, F) cosine-feature matmul (MXU);
+  prior draw is one (m, F) cosine-feature matmul;
 * the solve reuses the dense Cholesky factor (small N) or the
   matrix-free preconditioned CG stack (large N — ops/krylov.py), so
   posterior *function draws now exist at N=65k+*, where no dense factor
@@ -276,7 +276,7 @@ def _pathwise_terms(kernel, x, y, noise, key, n_samples, num_features):
 
 
 def _cross_matvec(kernel, xo, x, V, block_size):
-    """K(xo, x) @ V by strips over x — O(m * block) memory, MXU contractions."""
+    """K(xo, x) @ V by strips over x — O(m * block) memory, matmul contractions."""
     n = x.shape[0]
     b = min(block_size, n)
     nb = -(-n // b)
@@ -341,7 +341,7 @@ def sample_posterior_pathwise_iterative(
     The Matheron solve runs (optionally preconditioned) batched CG on the
     (n, n_samples) residual block; the cross-covariance update is a strip
     matvec.  This is the path that makes posterior *functions* available
-    at N = 65k+ on one chip (the dense sampler needs a dense factor).
+    at N = 65k+ on one device (the dense sampler needs a dense factor).
     Memory: O(n * max(n_samples, block_size, precond_rank)).
     ``structure="toeplitz"`` (uniform-grid training x) runs the Matheron
     solve with O(n log n) FFT matvecs; ``structure=ops.ski.SKIOperator``

@@ -16,9 +16,9 @@ space:
                       + logdet(A) + (n - F) log s^2 + n log 2pi ]
 
 (the matrix-determinant lemma / Woodbury identities — everything needs
-only the F x F Cholesky).  Cost: one blocked O(n F^2 / 2) MXU sweep to
+only the F x F Cholesky).  Cost: one blocked O(n F^2 / 2) matmul sweep to
 accumulate A (never materializing the (n, F) feature matrix), then
-O(F^3) once — n can be 10^6+ at F = 2048 on one chip, scattered inputs,
+O(F^3) once — n can be 10^6+ at F = 2048 on one device, scattered inputs,
 any dimension, no CG iterations and no f32 conditioning cliffs (A is
 regularized by s^2 with condition ~ ||K|| / s^2 spread over F modes).
 
@@ -74,7 +74,7 @@ def fit_rff(
     """Feature-space GP fit; memory O(F^2 + block * F), flops O(n F^2).
 
     The (n, F) feature matrix never exists: A and Phi^T y accumulate
-    over row blocks of x in one scan (each block is two MXU matmuls).
+    over row blocks of x in one scan (each block is two matmuls).
     """
     x = jnp.asarray(x)
     y = jnp.asarray(y)

@@ -4,7 +4,7 @@ The fourth large-N regime, closing the one measured gap in the round-2
 menu (dense exact | matrix-free CG | grid/SKI structure | RFF features):
 SCATTERED inputs at N ~ 1e6 with m data-placed inducing points, no CG
 iterations, and calibrated variances.  Everything n-sized is one blocked
-O(n m^2 / 2) MXU sweep; everything else is (m, m).
+O(n m^2 / 2) matmul sweep; everything else is (m, m).
 
 Model (Titsias 2009, "Variational learning of inducing variables in
 sparse Gaussian processes" — the collapsed evidence lower bound):
@@ -25,7 +25,7 @@ down in f32: triangular solves against chol(Kuu + jitter) amplify the
 f32 round-off of the swept moment matrix C = K_uf K_fu by
 ~eps * kappa(L) * ||AAT||, planting O(1)-O(10) junk eigenvalues on B's
 unit trailing spectrum — measured +55 nats ABOVE the exact lml at
-n=2000, m=64 on the chip (a "lower bound" that isn't), and NaN chol(B)
+n=2000, m=64 in f32 (a "lower bound" that isn't), and NaN chol(B)
 because kappa(B) ~ n h^2/s^2 exceeds f32 range at n >= 2e3.  Jitter
 cannot fix this: the bound loosens faster than the error shrinks
 (measured: 205 nats of slack at jitter=1e-2 vs 37 nats of error).
@@ -272,8 +272,9 @@ def fit_sgpr(
     jitter: float = 0.0,
     rank_tol: float | None = None,
 ) -> SGPRPosterior:
-    """Fit the collapsed SGPR posterior.  O(n m^2) flops (one MXU sweep),
-    O(m^2 + block * m) memory; n can be 1e6+ on one chip at m ~ 2048.
+    """Fit the collapsed SGPR posterior.  O(n m^2) flops (one matmul
+    sweep), O(m^2 + block * m) memory; n can be 1e6+ on one device at
+    m ~ 2048.
 
     ``jitter`` defaults to 0: the pseudo-inverse truncation (``rank_tol``,
     default sqrt(eps(dtype)) — see ``_default_rank_tol``) replaces the
@@ -479,7 +480,7 @@ def kmeans_inducing(
         def step(carry, xv):
             sums, counts = carry
             xj, mj = xv
-            # argmin_k ||x - z_k||^2 over the block, MXU for the cross term
+            # argmin_k ||x - z_k||^2 over the block, a matmul for the cross term
             d = (
                 jnp.sum(jnp.square(xj), axis=1)[:, None]
                 - 2.0 * jnp.matmul(xj, z.T, precision=_HI)

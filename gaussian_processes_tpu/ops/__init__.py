@@ -1,15 +1,14 @@
-"""Native ops layer: Pallas TPU kernels (SURVEY.md §3 native callout).
+"""Native ops layer: structured operators and the fused GPU kernels.
 
 The reference's only native code is its Cython kernel-evaluation
-extensions; the TPU-native equivalents live here.
+extensions.  Here plain jnp builds K and XLA fuses it; the Pallas
+kernels in ``pairwise`` fuse the kernel build into the matrix-free
+matvec (SURVEY.md §3 native callout).
 """
 
 from gaussian_processes_tpu.ops.pairwise import (
-    pairwise_hessian,
-    pairwise_jacobian,
-    pairwise_matrix,
-    pairwise_matrix_ard,
-    pairwise_matrix_reference,
+    kernel_jacvec_fused,
+    kernel_matvec_fused,
     tile_program,
 )
 from gaussian_processes_tpu.ops import host
@@ -21,11 +20,8 @@ __all__ = [
     "kronecker",
     "ski",
     "toeplitz",
-    "pairwise_hessian",
-    "pairwise_jacobian",
-    "pairwise_matrix",
-    "pairwise_matrix_ard",
-    "pairwise_matrix_reference",
+    "kernel_jacvec_fused",
+    "kernel_matvec_fused",
     "tile_program",
     "host",
 ]

@@ -1,9 +1,9 @@
 """Host-native kernel evaluation: C extension with numpy fallback.
 
-The CPU twin of the Pallas tile kernel (ops/pairwise.py) — role parity
-with the reference's Cython extensions (SURVEY.md §3 C7/C8).  Used by
-the CPU baseline benchmark and as an extra oracle in tests; the TPU
-compute path never goes through here.
+C kernel-matrix builders — role parity with the reference's Cython
+extensions (SURVEY.md §3 C7/C8).  Used by the CPU baseline benchmark
+and as an extra oracle in tests; the device compute path never goes
+through here.
 
 API convention matches the reference's native layer: ``*_K(out, x1, x2,
 theta...)`` fills a preallocated C-contiguous float64 array.  This module

@@ -27,7 +27,7 @@ ops/toeplitz.py::slq_logdet_circulant, one FFT dimension richer.
 The reference is strictly 1-D (SURVEY.md §1); this extends the round-1
 ARD extension (models/ard.py) with the structure exploit that makes
 image-/lattice-style GP regression (2-D and 3-D grids) tractable at
-N = prod(n_d) ~ 10^6 on one chip.  Gated against dense ARD matrices in
+N = prod(n_d) ~ 10^6 on one device.  Gated against dense ARD matrices in
 tests/test_kronecker.py.
 """
 
@@ -184,7 +184,7 @@ def kron_circulant_spectrum(cols, shift) -> jax.Array:
     *slow* CG vs no preconditioner — prefer plain CG (or refine the
     grid) in that regime.
 
-    Budgeting note (measured on chip + CPU): the Kronecker circulant
+    Budgeting note (measured): the Kronecker circulant
     clusters the spectrum less tightly than its 1-D counterpart (wrap
     error compounds across dims), so 2-D grids typically need ~2-3x the
     CG iterations of an equivalent 1-D Toeplitz solve — e.g. 512x512
@@ -342,8 +342,7 @@ def whittle_log_marginal_kron(
     bins is exactly y^T (C + s^2 I)^-1 y for real y).  O(n log n),
     deterministic, plain autodiff through the per-dimension kernel
     columns — the fully-Bayesian objective for D-dim grids at n ~ 1e6
-    where stochastic SLQ surrogates lose f32 honesty (STATUS.md round-2
-    session 3).
+    where stochastic SLQ surrogates lose f32 honesty (round 2).
 
     Same boundary semantics as 1-D: each dimension's ends are treated
     as neighbors; use endpoint-exclusive grids and check seam

@@ -2,13 +2,14 @@
 
 The O(N^2)-storage-free large-N path (pattern source: the public BBMM /
 GPyTorch line of work — blackbox matrix-matrix inference — re-designed
-here for TPU rather than copied):
+here rather than copied):
 
 * ``kernel_matvec``: K v without materializing K — a ``lax.scan`` over
   column blocks builds each (n, b) kernel strip on the fly from x (pure
-  elementwise VPU work straight out of registers) and contracts it on
-  the MXU.  Peak memory is O(n b), so one 16 GB chip handles N far
-  beyond the 17 GB dense wall at 65k (SURVEY.md §6.7, config #4).
+  elementwise work) and contracts it with a matmul — or, on the GPU,
+  the fused Pallas kernel never writes the strip at all.  Peak memory
+  is O(n b), so N goes far beyond the dense wall (K is 17 GB in f32 at
+  65k; SURVEY.md §6.7, config #4).
 * ``mbcg``: batched conjugate gradients over multiple right-hand sides,
   run a FIXED number of iterations (static shapes; converged systems are
   masked, not exited) — every iteration is one fused matvec over all
@@ -62,12 +63,14 @@ def kernel_matvec(
 
     * ``"strip"`` — ``lax.scan`` over column blocks: each step builds an
       (n, b) strip of K and contracts it (portable, differentiable).
-    * ``"fused"`` — Pallas tile kernel: K tiles are built in VMEM and
-      contracted on the MXU without ever reaching HBM
-      (ops/pairwise.py::kernel_matvec_fused) — removes the ~8 n^2 bytes
-      of strip traffic per matvec that dominates CG at large n.
+    * ``"fused"`` — the Pallas kernel (ops/pairwise.py::
+      kernel_matvec_fused) builds each K tile and contracts it on the
+      spot, which removes the ~8 n^2 bytes of strip traffic per matvec.
+      GPU only, not differentiable.
 
-    ``"auto"`` picks fused on TPU when the kernel supports tiling.
+    ``"auto"`` follows ``pairwise.fused_matvec_default`` for the square
+    product and takes the strip for ``x_rows``, where the fused kernel
+    was not timed.
 
     ``x_rows`` selects a *rectangular* strip product K_f(x_rows, x) @ v —
     the row-sharded building block of the distributed matvec
@@ -81,16 +84,13 @@ def kernel_matvec(
     x = jnp.asarray(x)
     rect = x_rows is not None
     if impl == "auto":
-        # measured (benchmarks/probe_matvec2.py, n=65536, r=9): strip
-        # ~23 ms vs fused ~40 ms device across all tile shapes — the
-        # fused kernel's skinny-RHS MXU dot (r padded to 128 lanes)
-        # costs more than the strip traffic it saves, so strip is the
-        # default; "fused" stays selectable for wide-RHS callers
-        impl = "strip"
+        width = 1 if v.ndim == 1 else v.shape[1]
+        fused = not rect and pairwise.fused_matvec_default(kernel, x, width)
+        impl = "fused" if fused else "strip"
     if impl == "fused":
-        if rect:
-            raise ValueError("impl='fused' does not support x_rows")
-        return pairwise.kernel_matvec_fused(kernel, x, v, noise, jitter)
+        return pairwise.kernel_matvec_fused(
+            kernel, x, v, noise, jitter, x_rows=x_rows
+        )
     rows = x if not rect else jnp.asarray(x_rows)
     squeeze = v.ndim == 1
     v2 = v[:, None] if squeeze else v
@@ -107,9 +107,9 @@ def kernel_matvec(
 
     def step(acc, xv):
         xj, vj = xv
-        Kj = kernel(rows, xj)  # (n_rows, b) strip, built from registers
-        # HIGHEST: TPU f32 matmuls otherwise run bf16 multiplies, whose
-        # ~1e-2 noise floor caps CG convergence regardless of iterations
+        Kj = kernel(rows, xj)  # (n_rows, b) strip
+        # HIGHEST: a TF32 (or bf16) contraction has a ~1e-3 noise floor
+        # that caps CG convergence regardless of iterations
         return acc + jnp.dot(Kj, vj, precision=lax.Precision.HIGHEST), None
 
     acc0 = jnp.zeros((rows.shape[0], v2.shape[1]), v2.dtype)
@@ -221,7 +221,8 @@ def pivoted_cholesky(
     # pollute the Woodbury apply instead of helping.  Freeze to zero
     # columns past that point (the shape stays static; the factor just
     # stops growing).  The 1e3 factor is calibrated to f32 at n ~ 1e5:
-    # a 10*eps floor let TPU f32 runs admit ~100 junk columns that CPU
+    # a 10*eps floor let f32 runs on an accelerator admit ~100 junk
+    # columns that CPU
     # f32 froze (measured: identical 65k ND-SKI solve, 300 vs 202
     # columns, preconditioned CG 0.65 vs 6e-4), because the guard sat
     # inside cross-backend round-off scatter.  Directions with residual
@@ -251,14 +252,14 @@ def effective_precond_shift(L: jax.Array, sigma2, allreduce=None,
                             floor_factor: float = 1.5e3):
     """Damped Woodbury shift: max(sigma2, floor_factor * eps * lam_max).
 
-    Why (round-3 chip finding): the Woodbury apply's final
+    Why (round-3 finding): the Woodbury apply's final
     ``(v - L M^-1 L^T v) / sigma2`` amplifies its own f32 rounding by
     ~||K||/sigma2 in the directions the system operator then re-amplifies.
     At n=65536 (lam_max ~ 1.5e3, sigma2 ~ 1e-2) that noise is O(1) in the
-    A-norm and CG stalls outright at ~1e-1 on TPU (a 0.28% difference in
+    A-norm and CG stalls outright at ~1e-1 (a 0.28% difference in
     the preconditioned vector moved the one-step residual 7x).  Flooring
     the shift at ~1e3 * eps * lam_max caps the amplification at ~1e-3:
-    measured on chip, the same solve went from flat 1.3e-1 to 5e-14 in 50
+    measured, the same solve went from flat 1.3e-1 to 5e-14 in 50
     iterations.  The floor only weakens the preconditioner when
     sigma2 < eps * cond-scale — exactly where the undamped version is
     numerically fictional anyway.  lam_max is estimated by the first
@@ -298,12 +299,12 @@ def woodbury_inverse_apply(L: jax.Array, sigma2, allreduce=None) -> "callable":
     )
     # Capacitance inverse via a ONE-TIME triangular inverse, applied as
     # controlled-precision matmuls.  Why not cho_solve per apply
-    # (round-3 chip finding): on TPU the TriangularSolve expansion runs
-    # its internal matmuls at DEFAULT (single-pass bf16) precision with
-    # no JAX-level override, so each preconditioner apply carried
+    # (round-3 finding): a TriangularSolve expansion can run its
+    # internal matmuls at DEFAULT precision (bf16 or TF32) with no
+    # JAX-level override, so each preconditioner apply carried
     # noise that VARIED with the right-hand side — an INCONSISTENT
-    # preconditioner, which breaks CG outright (the 65k ND-SKI chip
-    # solve sat at 1e-1 while the same program on CPU reached 4e-6).
+    # preconditioner, which breaks CG outright (the 65k ND-SKI solve
+    # sat at 1e-1 while the same program on CPU reached 4e-6).
     # M^-1 = (Lm^-1)^T (Lm^-1) built from a fixed triangular inverse is
     # the same SPD matrix every iteration — whatever the one-time
     # inversion error, that is all CG requires of a preconditioner.
@@ -354,8 +355,8 @@ def pcg(
     preconditioned residual.  Rationale (VERDICT r2 item 5): in f32 the
     recurrence residual drifts from the true one over hundreds of
     iterations — the round-2 "f32 CG stall at ~1e-2" on the n>=65536 SKI
-    operator is exactly this drift, not an operator noise floor (the TPU
-    f32 FFT matvec error is ~4e-7, measured in probe_fft_prec).  Costs
+    operator is exactly this drift, not an operator noise floor (the f32
+    FFT matvec error is ~4e-7).  Costs
     one extra matvec per k iterations; van der Vorst/Sleijpen-style
     infrequent replacement (k ~ 25-50) preserves CG convergence.
     Replacement is masked to still-active columns, so frozen columns

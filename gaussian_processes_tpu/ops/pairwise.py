@@ -1,35 +1,50 @@
-"""Pallas TPU kernel: tiled pairwise covariance-matrix construction.
+"""Fused kernel-matvec and Jacobian-matvec: Pallas kernels for the GPU.
 
-This is the framework's native layer (SURVEY.md §3 C7/C8): where the
-reference compiles elementwise double loops over (i, j) pairs to C via
-Cython (gp/kernels/*_c.pyx [R]), here one Pallas kernel builds each
-(block_m, block_n) tile of K in VMEM — pairwise difference, the kernel's
-elementwise closed form, and the noise/jitter diagonal all fused — and
-writes it to HBM exactly once.  No n x n distance matrix is ever
-materialized (SURVEY.md §6.7a), so the op is HBM-write-bound: its
-speed-of-light is N^2 * 4 bytes / write-bandwidth.
+The matrix-free paths (``ops/krylov.py``, ``models/iterative_gp.py``)
+need ``(K + s^2 I) V`` and ``dK/dtheta_p @ U`` for skinny ``V``/``U``
+(n x r, r ~ 9).  The plain-XLA strip scan writes every (n, b) strip of K
+to device memory and reads it back for the contraction: about 8 n^2
+bytes per matvec.  These kernels build each (bm, bn) tile of K from the
+coordinates and contract it on the spot, so device memory sees only x,
+V and the (n, r) output.
 
-The elementwise cores are the *same* ``Kernel.k_fn`` staticmethods the
-jnp path uses (models/gaussian.py, models/periodic.py), so Pallas and
-XLA paths cannot drift; tests assert tile-exact agreement (the TPU
-analogue of the reference's "Cython matches sympy" gate, SURVEY.md §5).
+Design (Pallas through Triton, ``backend="triton"``):
 
-Grid: (ceil(n/bm), ceil(m/bn)); inputs arrive as (n, 1) and (1, m)
-column/row vectors so each program broadcasts a (bm, 1) - (1, bn)
-difference tile on the VPU.  Hyperparameters ride in SMEM.
+* the grid runs over row blocks only; a ``fori_loop`` inside each
+  program walks the column blocks and carries the (bm, r) accumulator —
+  GPU programs run in no order, so nothing may carry across grid steps;
+* block sizes are powers of two, and r is padded to a power of two of
+  at least 16, the narrowest operand Triton's dot takes;
+* the contraction runs in full fp32 (``Precision.HIGHEST``): TF32 keeps
+  about three digits, which caps the CG residual far above the
+  tolerances the fits ask for.
+
+The elementwise cores are the same ``Kernel.k_fn``/``jac_fn`` static
+methods the jnp path uses (Sum/Product trees compose them), so the two
+paths cannot drift.
+
+``interpret=True`` runs a kernel in the Pallas interpreter, which is how
+the CPU tests reach it.  Without it, a call on any backend but the GPU
+raises.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from gaussian_processes_tpu.models.base import Kernel
+
+#: (rows, cols) of one K tile: rows per program, columns per loop step.
+MATVEC_BLOCK = (64, 128)
+JACVEC_BLOCK = (32, 64)
+#: Triton's dot needs every operand dimension >= 16.
+_MIN_WIDTH = 16
 
 
 def tile_program(kernel: Kernel):
@@ -37,12 +52,9 @@ def tile_program(kernel: Kernel):
 
     Leaf kernels return their class ``k_fn``; Sum/Product composites get
     a *composed* static function built recursively from their (static)
-    structure — the children's ``k_fn`` cores fused into one tile body
-    (SURVEY.md §6.7a / VERDICT r1 item 7b), so a quasi-periodic
-    ``SE * periodic`` builds its covariance in one pass over each tile
-    with no child-matrix intermediates.  The composed function is cached
-    per structure, so jit tracing sees a stable callable and the compile
-    cache hits across calls.
+    structure, so a quasi-periodic ``SE * periodic`` evaluates its
+    covariance in one pass over each tile.  The composed function is
+    cached per structure, so jit sees a stable callable.
     """
     struct = _tile_structure(kernel)
     fn, _ = _fn_from_structure(struct)
@@ -62,9 +74,8 @@ def _tile_structure(kernel: Kernel):
     if type(kernel).supports_tiled:
         return ("leaf", type(kernel))
     raise TypeError(
-        f"{type(kernel).__name__} has no Pallas tile form (needs a static "
-        "k_fn over 1-D differences, or a Sum/Product tree of such kernels); "
-        "ARD kernels use pairwise_matrix_ard"
+        f"{type(kernel).__name__} has no tile form (needs a static k_fn "
+        "over 1-D differences, or a Sum/Product tree of such kernels)"
     )
 
 
@@ -85,384 +96,142 @@ def _fn_from_structure(struct):
     return fn, p1 + p2
 
 
-def _tile_body(k_fn, n_params, with_diag, block, params_ref, x1_ref, x2_ref, out_ref):
-    bm, bn = block
-    i = pl.program_id(0)
-    j = pl.program_id(1)
+def _require_gpu(interpret: bool) -> None:
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the fused Pallas kernels are compiled for the GPU (Triton); "
+            f"the default backend is {jax.default_backend()!r}.  Pass "
+            "interpret=True to run them in the Pallas interpreter."
+        )
+
+
+def _ceil_mult(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _padded_width(r: int) -> int:
+    """Smallest power of two >= max(r, 16)."""
+    return max(_MIN_WIDTH, 1 << (r - 1).bit_length())
+
+
+def _contract(tile, v):
+    # full fp32 (no TF32) on the card; ``pl.dot`` would also force an
+    # f32 result, which the f64 interpreter tests must not get
+    return jnp.dot(tile, v, precision=lax.Precision.HIGHEST,
+                   preferred_element_type=v.dtype)
+
+
+def _matvec_body(k_fn, n_params, n_col_blocks, bn,
+                 params_ref, xr_ref, xc_ref, v_ref, out_ref):
+    """out[rows] = sum_j K(x_rows, x_cols[j]) @ v[j], one row block."""
     params = [params_ref[k] for k in range(n_params)]
-    d = x1_ref[:] - x2_ref[:]  # (bm, 1) - (1, bn) -> (bm, bn)
-    out = k_fn(d, *params)
-    if with_diag:
-        # noise^2 + jitter on the global diagonal of this tile
-        diag = params_ref[n_params]
-        rows = i * bm + jax.lax.broadcasted_iota(jnp.int32, (bm, bn), 0)
-        cols = j * bn + jax.lax.broadcasted_iota(jnp.int32, (bm, bn), 1)
-        out = jnp.where(rows == cols, out + diag, out)
-    out_ref[:] = out
+    xr = xr_ref[...]
+
+    def step(j, acc):
+        cols = pl.ds(pl.multiple_of(j * bn, bn), bn)
+        tile = k_fn(xr[:, None] - xc_ref[cols][None, :], *params)
+        return acc + _contract(tile, v_ref[cols, :])
+
+    acc = jnp.zeros(out_ref.shape, out_ref.dtype)
+    out_ref[...] = lax.fori_loop(0, n_col_blocks, step, acc)
+
+
+def _jacvec_body(jac_fn, n_params, n_col_blocks, bn,
+                 params_ref, xr_ref, xc_ref, u_ref, *out_refs):
+    """out_p[rows] = sum_j dK/dtheta_p(x_rows, x_cols[j]) @ u[j]."""
+    params = [params_ref[k] for k in range(n_params)]
+    xr = xr_ref[...]
+
+    def step(j, accs):
+        cols = pl.ds(pl.multiple_of(j * bn, bn), bn)
+        u = u_ref[cols, :]
+        jac = jac_fn(xr[:, None] - xc_ref[cols][None, :], *params)
+        return tuple(a + _contract(t, u) for a, t in zip(accs, jac))
+
+    accs = tuple(jnp.zeros(o.shape, o.dtype) for o in out_refs)
+    accs = lax.fori_loop(0, n_col_blocks, step, accs)
+    for o, a in zip(out_refs, accs):
+        o[...] = a
+
+
+def _ard_matvec_body(D, n_params, n_col_blocks, bn,
+                     params_ref, xr_ref, xc_ref, v_ref, out_ref):
+    """ARD SE over (D, n) transposed inputs: the squared distance builds
+    up one dimension at a time, so no (bm, bn, D) difference exists."""
+    del n_params
+    h = params_ref[0]
+    inv_w = [1.0 / params_ref[1 + d] for d in range(D)]
+    xr = [xr_ref[d, :] * inv_w[d] for d in range(D)]
+
+    def step(j, acc):
+        cols = pl.ds(pl.multiple_of(j * bn, bn), bn)
+        q = None
+        for d in range(D):
+            diff = xr[d][:, None] - (xc_ref[d, cols] * inv_w[d])[None, :]
+            q = diff * diff if q is None else q + diff * diff
+        tile = (h * h) * jnp.exp(-0.5 * q)
+        return acc + _contract(tile, v_ref[cols, :])
+
+    acc = jnp.zeros(out_ref.shape, out_ref.dtype)
+    out_ref[...] = lax.fori_loop(0, n_col_blocks, step, acc)
+
+
+_BODIES = {
+    "matvec": _matvec_body,
+    "jacvec": _jacvec_body,
+    "ard_matvec": _ard_matvec_body,
+}
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k_fn", "n_params", "with_diag", "block", "interpret"),
+    static_argnames=("kind", "elem", "n_out", "block", "num_warps",
+                     "interpret"),
 )
-def _pairwise(
-    k_fn,
-    n_params,
-    params,  # (P,) or (P+1,) with the trailing diagonal term
-    x1,  # (n,)
-    x2,  # (m,)
-    *,
-    with_diag: bool,
-    block,
-    interpret: bool,
-):
-    n, m = x1.shape[0], x2.shape[0]
+def _fused_call(kind, elem, n_out, params, xr, xc, v, *, block,
+                num_warps, interpret):
+    """Row-block grid over padded, block-aligned operands.
+
+    ``xr`` (n_r,) and ``xc`` (n_c,) — or (D, n_r)/(D, n_c) for ARD — are
+    multiples of ``bm``/``bn`` long; ``v`` is (n_c, r) with r a power of
+    two >= 16 and zero rows past the real columns, so padded columns
+    contribute nothing.
+    """
     bm, bn = block
-    dtype = x1.dtype
-    grid = (pl.cdiv(n, bm), pl.cdiv(m, bn))
-    body = functools.partial(_tile_body, k_fn, n_params, with_diag, block)
+    n_r, n_c, r = xr.shape[-1], xc.shape[-1], v.shape[1]
+    lead = xr.shape[:-1]  # () or (D,)
+    body = functools.partial(
+        _BODIES[kind], elem, params.shape[0], n_c // bn, bn
+    )
+    out = jax.ShapeDtypeStruct((n_r, r), v.dtype)
+    out_spec = pl.BlockSpec((bm, r), lambda i: (i, 0))
     return pl.pallas_call(
         body,
-        out_shape=jax.ShapeDtypeStruct((n, m), dtype),
-        grid=grid,
+        out_shape=[out] * n_out,
+        grid=(n_r // bm,),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # params, whole array
-            pl.BlockSpec((bm, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bn), lambda i, j: (0, j), memory_space=pltpu.VMEM),
+            pl.BlockSpec(params.shape, lambda i: (0,)),
+            pl.BlockSpec((*lead, bm), lambda i: (*(0 for _ in lead), i)),
+            pl.BlockSpec(xc.shape, lambda i: (0,) * xc.ndim),
+            pl.BlockSpec((n_c, r), lambda i: (0, 0)),
         ],
-        out_specs=pl.BlockSpec(
-            (bm, bn), lambda i, j: (i, j), memory_space=pltpu.VMEM
-        ),
+        out_specs=[out_spec] * n_out,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=num_warps),
         interpret=interpret,
-    )(params, x1[:, None], x2[None, :])
+        name=f"fused_{kind}",
+    )(params, xr, xc, v)
 
 
-def pairwise_matrix(
-    kernel: Kernel,
-    x1,
-    x2,
-    *,
-    noise=None,
-    jitter: float = 0.0,
-    block=(256, 512),
-    interpret: Optional[bool] = None,
-) -> jax.Array:
-    """K[i, j] = k(x1[i], x2[j]) (+ (noise^2 + jitter) I when noise given).
-
-    Drop-in replacement for ``kernel(x1, x2)`` / ``models.gp.build_kxx``
-    built by the Pallas tile kernel.  Supports leaf kernels and arbitrary
-    Sum/Product trees of them (the children's elementwise cores fuse into
-    one tile body).  ``interpret`` defaults to True off TPU so the same
-    code path is testable on CPU.
-    """
-    x1 = jnp.asarray(x1)
-    x2 = jnp.asarray(x2)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    k_fn, params = tile_program(kernel)
-    params = params.astype(x1.dtype)
-    n_params = params.shape[0]
-    with_diag = noise is not None
-    if with_diag:
-        diag = jnp.square(jnp.asarray(noise, x1.dtype)) + jnp.asarray(
-            jitter, x1.dtype
-        )
-        params = jnp.concatenate([params, diag[None]])
-    return _pairwise(
-        k_fn,
-        n_params,
-        params,
-        x1,
-        x2,
-        with_diag=with_diag,
-        block=block,
-        interpret=interpret,
-    )
-
-
-# ---------------------------------------------------------------------------
-# ARD (D-dim inputs) tile builder
-# ---------------------------------------------------------------------------
-
-
-def _ard_tile_body(D, with_diag, block, params_ref, x1_ref, x2_ref, out_ref):
-    """k(x, x') = h^2 exp(-1/2 sum_d (x_d - x'_d)^2 / w_d^2) per tile.
-
-    The squared distance accumulates dimension-by-dimension as rank-2
-    broadcasts — the (bm, bn, D) difference tensor of the jnp path never
-    exists (VERDICT r1 item 5: ARD lost the native path at large N).
-    """
+def _pad_operands(x_rows, x_cols, v, block):
+    """Pad the point axis (last) of x to block multiples, v's to match."""
     bm, bn = block
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    h = params_ref[0]
-    acc = jnp.zeros((bm, bn), out_ref.dtype)
-    for d in range(D):  # D is static and small; unrolled VPU adds
-        w_d = params_ref[1 + d]
-        diff = x1_ref[:, d][:, None] - x2_ref[:, d][None, :]
-        acc = acc + jnp.square(diff / w_d)
-    out = jnp.square(h) * jnp.exp(-0.5 * acc)
-    if with_diag:
-        diag = params_ref[1 + D]
-        rows = i * bm + jax.lax.broadcasted_iota(jnp.int32, (bm, bn), 0)
-        cols = j * bn + jax.lax.broadcasted_iota(jnp.int32, (bm, bn), 1)
-        out = jnp.where(rows == cols, out + diag, out)
-    out_ref[:] = out
-
-
-@functools.partial(
-    jax.jit, static_argnames=("D", "with_diag", "block", "interpret")
-)
-def _pairwise_ard(params, x1, x2, *, D, with_diag, block, interpret):
-    n, m = x1.shape[0], x2.shape[0]
-    bm, bn = block
-    grid = (pl.cdiv(n, bm), pl.cdiv(m, bn))
-    body = functools.partial(_ard_tile_body, D, with_diag, block)
-    return pl.pallas_call(
-        body,
-        out_shape=jax.ShapeDtypeStruct((n, m), x1.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((bm, D), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, D), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (bm, bn), lambda i, j: (i, j), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(params, x1, x2)
-
-
-def pairwise_matrix_ard(
-    kernel,
-    x1,
-    x2,
-    *,
-    noise=None,
-    jitter: float = 0.0,
-    block=(256, 512),
-    interpret: Optional[bool] = None,
-) -> jax.Array:
-    """Tiled covariance for ``ARDGaussianKernel`` over (n, D) inputs."""
-    from gaussian_processes_tpu.models.ard import ARDGaussianKernel
-
-    if not isinstance(kernel, ARDGaussianKernel):
-        raise TypeError("pairwise_matrix_ard expects an ARDGaussianKernel")
-    x1 = jnp.atleast_2d(jnp.asarray(x1))
-    x2 = jnp.atleast_2d(jnp.asarray(x2))
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    D = x1.shape[1]
-    params = kernel.params.astype(x1.dtype)  # (1 + D,)
-    with_diag = noise is not None
-    if with_diag:
-        diag = jnp.square(jnp.asarray(noise, x1.dtype)) + jnp.asarray(
-            jitter, x1.dtype
-        )
-        params = jnp.concatenate([params, diag[None]])
-    return _pairwise_ard(
-        params, x1, x2, D=D, with_diag=with_diag, block=block,
-        interpret=interpret,
-    )
-
-
-def _jac_tile_body(kernel_cls, params_ref, x1_ref, x2_ref, out_ref):
-    P = len(kernel_cls.param_names)
-    params = [params_ref[k] for k in range(P)]
-    d = x1_ref[:] - x2_ref[:]
-    out_ref[:] = jnp.stack(kernel_cls.jac_fn(d, *params))
-
-
-def _hess_tile_body(kernel_cls, params_ref, x1_ref, x2_ref, out_ref):
-    P = len(kernel_cls.param_names)
-    params = [params_ref[k] for k in range(P)]
-    d = x1_ref[:] - x2_ref[:]
-    tri = kernel_cls.hess_fn(d, *params)
-    idx = {}
-    it = iter(range(len(tri)))
-    for i in range(P):
-        for j in range(i, P):
-            idx[(i, j)] = next(it)
-    rows = [
-        jnp.stack([tri[idx[(min(i, j), max(i, j))]] for j in range(P)])
-        for i in range(P)
-    ]
-    out_ref[:] = jnp.stack(rows)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("kernel_cls", "order", "block", "interpret")
-)
-def _pairwise_deriv(kernel_cls, params, x1, x2, *, order, block, interpret):
-    n, m = x1.shape[0], x2.shape[0]
-    bm, bn = block
-    dtype = x1.dtype
-    P = len(kernel_cls.param_names)
-    grid = (pl.cdiv(n, bm), pl.cdiv(m, bn))
-    if order == 1:
-        body = functools.partial(_jac_tile_body, kernel_cls)
-        out_shape = jax.ShapeDtypeStruct((P, n, m), dtype)
-        out_spec = pl.BlockSpec(
-            (P, bm, bn), lambda i, j: (0, i, j), memory_space=pltpu.VMEM
-        )
-    else:
-        body = functools.partial(_hess_tile_body, kernel_cls)
-        out_shape = jax.ShapeDtypeStruct((P, P, n, m), dtype)
-        out_spec = pl.BlockSpec(
-            (P, P, bm, bn), lambda i, j: (0, 0, i, j), memory_space=pltpu.VMEM
-        )
-    return pl.pallas_call(
-        body,
-        out_shape=out_shape,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((bm, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bn), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_spec,
-        interpret=interpret,
-    )(params, x1[:, None], x2[None, :])
-
-
-def pairwise_jacobian(
-    kernel: Kernel, x1, x2, *, block=(256, 256), interpret: Optional[bool] = None
-) -> jax.Array:
-    """Tiled dK/dtheta, (P, n, m) — Pallas twin of ``Kernel.jacobian``
-    (the reference's second Cython hot loop, SURVEY.md §4.3)."""
-    x1 = jnp.asarray(x1)
-    x2 = jnp.asarray(x2)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    return _pairwise_deriv(
-        type(kernel), kernel.params.astype(x1.dtype), x1, x2,
-        order=1, block=block, interpret=interpret,
-    )
-
-
-def pairwise_hessian(
-    kernel: Kernel, x1, x2, *, block=(256, 256), interpret: Optional[bool] = None
-) -> jax.Array:
-    """Tiled d2K/dtheta2, (P, P, n, m) — Pallas twin of ``Kernel.hessian``."""
-    x1 = jnp.asarray(x1)
-    x2 = jnp.asarray(x2)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    return _pairwise_deriv(
-        type(kernel), kernel.params.astype(x1.dtype), x1, x2,
-        order=2, block=block, interpret=interpret,
-    )
-
-
-# ---------------------------------------------------------------------------
-# Fused kernel-matvec: (K + diag I) @ v with K never leaving VMEM
-# ---------------------------------------------------------------------------
-
-
-def _matvec_tile_body(
-    k_fn, n_params, params_ref, x1_ref, x2_ref, v_ref, out_ref
-):
-    """One (bm, bn) tile of K, built and contracted in VMEM.
-
-    The strip-scan matvec (ops/krylov.py::kernel_matvec) writes each
-    (n, b) block of K to HBM and reads it back for the dot — 2 * 4 * n^2
-    bytes of HBM traffic per matvec, which dominates CG wall-clock at
-    large n (the dot itself is ~10x cheaper).  Here the tile goes
-    VPU -> MXU directly; HBM sees only x, v, and the (n, r) output, so
-    the op is compute-bound at the kernel-eval + matmul rate.
-
-    Grid is (rows, cols) with cols innermost: the output tile for row
-    block i stays resident in VMEM while j sweeps, accumulating one
-    (bm, bn) @ (bn, r) MXU contraction per step.
-    """
-    j = pl.program_id(1)
-    params = [params_ref[k] for k in range(n_params)]
-    d = x1_ref[:] - x2_ref[:]  # (bm, 1) - (1, bn) -> (bm, bn)
-    ktile = k_fn(d, *params)
-
-    @pl.when(j == 0)
-    def _init():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    out_ref[:] = out_ref[:] + jnp.dot(
-        ktile,
-        v_ref[:],
-        preferred_element_type=out_ref.dtype,
-        # CG stability: single-pass-bf16 f32 dots have a ~1e-2 noise
-        # floor that caps attainable residuals (round-1 lesson)
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
-def _ard_matvec_tile_body(D, params_ref, x1_ref, x2_ref, v_ref, out_ref):
-    j = pl.program_id(1)
-    h = params_ref[0]
-    bm = x1_ref.shape[0]
-    bn = x2_ref.shape[0]
-    acc = jnp.zeros((bm, bn), out_ref.dtype)
-    for d in range(D):
-        w_d = params_ref[1 + d]
-        diff = x1_ref[:, d][:, None] - x2_ref[:, d][None, :]
-        acc = acc + jnp.square(diff / w_d)
-    ktile = jnp.square(h) * jnp.exp(-0.5 * acc)
-
-    @pl.when(j == 0)
-    def _init():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    out_ref[:] = out_ref[:] + jnp.dot(
-        ktile,
-        v_ref[:],
-        preferred_element_type=out_ref.dtype,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("k_fn", "n_params", "D", "block", "interpret")
-)
-def _fused_matvec(
-    k_fn, n_params, D, params, x1c, x2c, v, *, block, interpret
-):
-    """Dispatch the padded, block-aligned fused matvec pallas_call.
-
-    ``D`` is None for 1-D inputs (x1c/x2c are (n, 1)/(1, n)); otherwise
-    inputs are (n, D) and the ARD body runs.  All shapes are exact
-    multiples of ``block`` — callers pad (edge-tile reads of v must be
-    zeros, not garbage, since they accumulate into real rows).
-    """
-    bm, bn = block
-    n = x1c.shape[0] if D is not None else x1c.shape[0]
-    m = v.shape[0]
-    r = v.shape[1]
-    grid = (n // bm, m // bn)
-    if D is None:
-        body = functools.partial(_matvec_tile_body, k_fn, n_params)
-        in_specs = [
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((bm, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bn), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, r), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ]
-    else:
-        body = functools.partial(_ard_matvec_tile_body, D)
-        in_specs = [
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((bm, D), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, D), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, r), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ]
-    return pl.pallas_call(
-        body,
-        out_shape=jax.ShapeDtypeStruct((n, r), v.dtype),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (bm, r), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(params, x1c, x2c, v)
+    n_r, n_c, r = x_rows.shape[-1], x_cols.shape[-1], v.shape[1]
+    lead = [(0, 0)] * (x_rows.ndim - 1)
+    xr = jnp.pad(x_rows, lead + [(0, _ceil_mult(n_r, bm) - n_r)])
+    xc = jnp.pad(x_cols, lead + [(0, _ceil_mult(n_c, bn) - n_c)])
+    vp = jnp.pad(v, [(0, xc.shape[-1] - n_c), (0, _padded_width(r) - r)])
+    return xr, xc, vp
 
 
 def kernel_matvec_fused(
@@ -472,114 +241,48 @@ def kernel_matvec_fused(
     noise,
     jitter: float = 0.0,
     *,
-    block=(512, 512),
-    interpret: Optional[bool] = None,
+    x_rows=None,
+    block=MATVEC_BLOCK,
+    num_warps: int = 4,
+    interpret: bool = False,
 ) -> jax.Array:
-    """(K(x, x) + (noise^2 + jitter) I) @ v, K built and consumed in VMEM.
+    """(K(x, x) + (noise^2 + jitter) I) @ v with K never in device memory.
 
-    Fused twin of ``ops.krylov.kernel_matvec`` (same contract, same
-    padding semantics) for tile-capable kernels (leaves, Sum/Product
-    trees) and ``ARDGaussianKernel`` over (n, D) inputs.  Not
-    differentiable (no AD rule); the iterative path's gradients use
-    explicit Jacobian strips, never AD through the matvec.
+    Fused twin of ``ops.krylov.kernel_matvec`` (same contract, including
+    ``x_rows``: the rectangular K(x_rows, x) @ v with no diagonal term)
+    for tile-capable kernels (leaves, Sum/Product trees) over 1-D inputs
+    and ``ARDGaussianKernel`` over (n, D) inputs.  Not differentiable;
+    the matrix-free gradients use explicit Jacobian products, never AD
+    through the matvec.
     """
+    _require_gpu(interpret)
     x = jnp.asarray(x)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    if not supports_fused_matvec(kernel, x):
+        raise TypeError(
+            f"no fused matvec for {type(kernel).__name__} over "
+            f"{x.ndim}-D inputs"
+        )
+    v = jnp.asarray(v)
     squeeze = v.ndim == 1
     v2 = v[:, None] if squeeze else v
-    n = x.shape[0]
-    bm, bn = block
-    n_pad = max(_ceil_mult(n, bm), _ceil_mult(n, bn))
-    xp = jnp.pad(x, [(0, n_pad - n)] + [(0, 0)] * (x.ndim - 1))
-    vp = jnp.pad(v2, [(0, n_pad - n), (0, 0)])
-
+    rows = x if x_rows is None else jnp.asarray(x_rows)
     if x.ndim == 2:
-        from gaussian_processes_tpu.models.ard import ARDGaussianKernel
-
-        if not isinstance(kernel, ARDGaussianKernel):
-            raise TypeError(
-                "fused matvec over (n, D) inputs needs ARDGaussianKernel"
-            )
-        D = x.shape[1]
-        params = kernel.params.astype(x.dtype)
-        out = _fused_matvec(
-            None, 0, D, params, xp, xp, vp, block=block, interpret=interpret
-        )
+        kind, elem, params = "ard_matvec", x.shape[1], kernel.params
+        rows, cols = rows.T, x.T
     else:
-        k_fn, params = tile_program(kernel)
-        params = params.astype(x.dtype)
-        out = _fused_matvec(
-            k_fn, params.shape[0], None, params,
-            xp[:, None], xp[None, :], vp, block=block, interpret=interpret,
+        kind, cols = "matvec", x
+        elem, params = tile_program(kernel)
+    xr, xc, vp = _pad_operands(rows, cols, v2, block)
+    (out,) = _fused_call(kind, elem, 1, params.astype(x.dtype), xr, xc, vp,
+                         block=block, num_warps=num_warps,
+                         interpret=interpret)
+    out = out[: rows.shape[-1], : v2.shape[1]]
+    if x_rows is None:
+        diag = jnp.square(jnp.asarray(noise, out.dtype)) + jnp.asarray(
+            jitter, out.dtype
         )
-    out = out[:n]
-    diag = jnp.square(jnp.asarray(noise, out.dtype)) + jnp.asarray(
-        jitter, out.dtype
-    )
-    out = out + diag * v2
+        out = out + diag * v2
     return out[:, 0] if squeeze else out
-
-
-def _ceil_mult(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def _jacvec_tile_body(kernel_cls, params_ref, x1_ref, x2_ref, u_ref, out_ref):
-    """One (bm, bn) Jacobian tile per parameter, contracted in VMEM.
-
-    The matrix-free gradient path needs J_p @ U for every hyperparameter
-    p (U = [alpha, probes]); the strip scan in
-    models/iterative_gp.py materializes (P, n, b) Jacobian strips in HBM
-    first.  Here each parameter's tile comes out of ``jac_fn`` in VMEM
-    and feeds the MXU directly — same fusion argument as
-    ``_matvec_tile_body``, times P.
-    """
-    j = pl.program_id(1)
-    P = len(kernel_cls.param_names)
-    params = [params_ref[k] for k in range(P)]
-    d = x1_ref[:] - x2_ref[:]
-    jac = kernel_cls.jac_fn(d, *params)  # tuple of P (bm, bn) tiles
-
-    @pl.when(j == 0)
-    def _init():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    for p in range(P):  # P is tiny and static
-        out_ref[p] = out_ref[p] + jnp.dot(
-            jac[p],
-            u_ref[:],
-            preferred_element_type=out_ref.dtype,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("kernel_cls", "block", "interpret")
-)
-def _fused_jacvec(kernel_cls, params, x1c, x2c, u, *, block, interpret):
-    bm, bn = block
-    n = x1c.shape[0]
-    m = u.shape[0]
-    r = u.shape[1]
-    P = len(kernel_cls.param_names)
-    grid = (n // bm, m // bn)
-    body = functools.partial(_jacvec_tile_body, kernel_cls)
-    return pl.pallas_call(
-        body,
-        out_shape=jax.ShapeDtypeStruct((P, n, r), u.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((bm, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bn), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, r), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (P, bm, r), lambda i, j: (0, i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(params, x1c, x2c, u)
 
 
 def kernel_jacvec_fused(
@@ -587,47 +290,39 @@ def kernel_jacvec_fused(
     x,
     u,
     *,
-    block=(256, 512),
-    interpret: Optional[bool] = None,
+    block=JACVEC_BLOCK,
+    num_warps: int = 4,
+    interpret: bool = False,
 ) -> jax.Array:
     """(P, n, r) = stack_p(dK/dtheta_p @ u) without materializing dK/dtheta.
 
     Leaf tile-capable kernels only (the closed-form ``jac_fn`` runs per
-    tile); callers fall back to the strip scan otherwise.
+    tile); callers use the strip scan otherwise.
     """
+    _require_gpu(interpret)
     x = jnp.asarray(x)
     u = jnp.asarray(u)
-    if x.ndim != 1:
-        raise TypeError("fused jacvec is 1-D-input only")
+    if not supports_fused_jacvec(kernel, x):
+        raise TypeError(
+            f"{type(kernel).__name__} over {x.ndim}-D inputs has no static "
+            "tiled jac_fn form"
+        )
     cls = type(kernel)
-    # `is True` matters: composite kernels define supports_tiled as a
-    # PROPERTY, and the property object read off the class is truthy —
-    # which used to route Sum/Product kernels here and crash on their
-    # non-static param_names (found in round-2 review).  The fused
-    # jacvec needs the leaf-kernel static elementwise form.
-    if getattr(cls, "supports_tiled", False) is not True:
-        raise TypeError(f"{cls.__name__} has no static tiled jac_fn form")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    n = x.shape[0]
-    bm, bn = block
-    n_pad = max(_ceil_mult(n, bm), _ceil_mult(n, bn))
-    xp = jnp.pad(x, (0, n_pad - n))
-    up = jnp.pad(u, [(0, n_pad - n), (0, 0)])
-    out = _fused_jacvec(
-        cls, kernel.params.astype(x.dtype), xp[:, None], xp[None, :], up,
-        block=block, interpret=interpret,
-    )
-    return out[:, :n, :]
+    xr, xc, up = _pad_operands(x, x, u, block)
+    outs = _fused_call("jacvec", cls.jac_fn, len(cls.param_names),
+                       kernel.params.astype(x.dtype), xr, xc, up,
+                       block=block, num_warps=num_warps,
+                       interpret=interpret)
+    n, r = x.shape[0], u.shape[1]
+    return jnp.stack([o[:n, :r] for o in outs])
 
 
 def supports_fused_jacvec(kernel: Kernel, x) -> bool:
     # class-level literal True only: composites expose supports_tiled as
     # a property (truthy as a class attribute even when instances say
-    # False) but have no static jac_fn/param_names for _fused_jacvec
-    x = jnp.asarray(x)
+    # False) but have no static jac_fn/param_names
     return (
-        x.ndim == 1
+        jnp.ndim(x) == 1
         and getattr(type(kernel), "supports_tiled", False) is True
     )
 
@@ -636,9 +331,10 @@ def supports_fused_matvec(kernel: Kernel, x) -> bool:
     """True when ``kernel_matvec_fused`` can run for this (kernel, x)."""
     from gaussian_processes_tpu.models.ard import ARDGaussianKernel
 
-    x = jnp.asarray(x)
-    if x.ndim == 2:
+    if jnp.ndim(x) == 2:
         return isinstance(kernel, ARDGaussianKernel)
+    if jnp.ndim(x) != 1:
+        return False
     try:
         _tile_structure(kernel)
         return True
@@ -646,11 +342,37 @@ def supports_fused_matvec(kernel: Kernel, x) -> bool:
         return False
 
 
-def pairwise_matrix_reference(kernel: Kernel, x1, x2, *, noise=None, jitter=0.0):
-    """Pure-jnp twin of ``pairwise_matrix`` (the test oracle)."""
-    K = kernel(jnp.asarray(x1), jnp.asarray(x2))
-    if noise is not None:
-        n = K.shape[0]
-        diag = jnp.square(jnp.asarray(noise, K.dtype)) + jnp.asarray(jitter, K.dtype)
-        K = K + diag * jnp.eye(n, K.shape[1], dtype=K.dtype)
-    return K
+# The defaults take a fused kernel only where it was timed against the
+# strip scan on the card and won (PERF.md, bring-up findings): the SE
+# matvec and the SE and periodic Jacobian-matvecs, over 1-D inputs, with
+# at most 16 right-hand sides (timed at r = 9, which pads to 16).
+# Composite and ARD kernels and wider right-hand sides run correctly
+# through the fused kernels but were not timed, so they stay on the strip.
+_TIMED_MAX_WIDTH = _MIN_WIDTH
+
+
+def fused_matvec_default(kernel: Kernel, x, width: int) -> bool:
+    """Whether ``kernel_matvec(impl="auto")`` takes the fused kernel for
+    ``width`` right-hand sides."""
+    from gaussian_processes_tpu.models.gaussian import GaussianKernel
+
+    return (
+        jax.default_backend() == "gpu"
+        and jnp.ndim(x) == 1
+        and width <= _TIMED_MAX_WIDTH
+        and type(kernel) is GaussianKernel
+    )
+
+
+def fused_jacvec_default(kernel: Kernel, x, width: int) -> bool:
+    """Whether the matrix-free gradient takes ``kernel_jacvec_fused`` for
+    ``width`` right-hand sides."""
+    from gaussian_processes_tpu.models.gaussian import GaussianKernel
+    from gaussian_processes_tpu.models.periodic import PeriodicKernel
+
+    return (
+        jax.default_backend() == "gpu"
+        and jnp.ndim(x) == 1
+        and width <= _TIMED_MAX_WIDTH
+        and type(kernel) in (GaussianKernel, PeriodicKernel)
+    )

@@ -5,7 +5,7 @@ kernel matrix here is symmetric Toeplitz: K[i, j] = k((i - j) dx) is
 fully described by its first column.  That collapses the iterative
 path's O(n^2) on-the-fly strip matvec (ops/krylov.py::kernel_matvec) to
 an O(n log n) circulant-embedding FFT product — the classic structured
-trick, rebuilt here on XLA's TPU FFT:
+trick, rebuilt here on XLA's FFT (cuFFT on the GPU):
 
     embed col into a length-2n circulant   c = [col, 0, col[n-1:0:-1]]
     (T v) = irfft(rfft(c) * rfft([v, 0]))[:n]
@@ -22,7 +22,7 @@ O(n k^2) pivoted-Cholesky preconditioner build with something free.
 This is the 1-D analogue of "exploit structure before brute force": the
 reference library (SURVEY.md §1 — exact 1-D GP regression) is exactly
 the regime where gridded designs are common (time series, signals), and
-on TPU the FFT path turns config-#4-sized fits into sub-second work.
+the FFT path turns config-#4-sized fits into sub-second work.
 Everything is gated against the dense/strip paths in
 tests/test_toeplitz.py.
 """
@@ -128,7 +128,7 @@ def circulant_eigenvalues(col: jax.Array, shift) -> jax.Array:
     N=2^20 SE scales (lam_max ~ 1e4) — the same order as a realistic
     noise variance — so the Whittle density's high-frequency bins
     stopped depending on s and the 1M-point posterior mis-ranked the
-    noise (lp INCREASED as s -> 0; BASELINE.md round-4 forensics).
+    noise (lp INCREASED as s -> 0; round-4 forensics).
     ``shift`` must be > 0 for SPD; every caller passes noise^2 + jitter.
     """
     col = jnp.asarray(col)
@@ -291,7 +291,8 @@ def quasi_periodic_bins(kp, kc, n: int, dx, dtype, aliases: int,
 
     # jax.checkpoint: without it, autodiff through the scan saves every
     # step's (n//2+1,)-sized density intermediates — measured 53 GB of
-    # HBM residuals at n=2^20 with 257 harmonics (chip OOM, round 5).
+    # device-memory residuals at n=2^20 with 257 harmonics (OOM,
+    # round 5).
     # The body is a few dozen elementwise evals; recomputing it on the
     # backward pass is free next to the memory it saves.
     @jax.checkpoint
@@ -416,7 +417,7 @@ def whittle_spectrum(kernel, x, noise, jitter: float = 0.0,
             # the FFT spectrum's f32 round-off tail (~eps * lam_max) is
             # the same order as a realistic noise variance at n ~ 1e6 —
             # the measured round-4 failure mode (noise erased from the
-            # high-frequency bins; BASELINE.md round-4 forensics)
+            # high-frequency bins; round-4 forensics)
             warnings.warn(
                 f"whittle_spectrum: no analytic spectrum for "
                 f"{type(kernel).__name__}; falling back to the FFT "

@@ -1,8 +1,8 @@
 """Parallel layer: device meshes, chain sharding, distributed linalg.
 
-The TPU-native communication backend (SURVEY.md §6.8): XLA collectives
-over ICI/DCN via ``jax.sharding.Mesh`` + ``shard_map``/``jit`` — no
-NCCL/MPI analogue is needed on TPU.
+The communication backend (SURVEY.md §6.8): XLA collectives via
+``jax.sharding.Mesh`` + ``shard_map``/``jit``, which XLA hands to NCCL
+on GPUs — no hand-written NCCL/MPI layer.
 """
 
 from gaussian_processes_tpu.parallel.sharded import (

@@ -220,7 +220,7 @@ def sample_chees_iterative_sharded(
     replicated (every device steps all C chains; the data-parallel
     psum/all_gather split the FLOPs); with a 2-D mesh and ``chain_axis``
     set, C must divide the chain-axis size and adaptation pools across
-    it.  ``chunk_size`` host-chunks the scans (watchdog-safe,
+    it.  ``chunk_size`` host-chunks the scans (short dispatches,
     checkpointable between dispatches, bit-identical).
     """
     if mesh is None:

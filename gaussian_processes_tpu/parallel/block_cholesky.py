@@ -1,19 +1,19 @@
 """Distributed blocked Cholesky: row-block-cyclic over a 1-D device mesh.
 
 Why this exists (SURVEY.md §6.7c, BASELINE.json:10): at N=65k the kernel
-matrix is 17 GB in f32 — larger than one v5e chip's HBM.  XLA's
-``jnp.linalg.cholesky`` on a sharded operand gathers it to every device,
-so the only way to factor at this scale is a hand-blocked SPMD algorithm
-where each device only ever holds its N^2/D share plus one N x b panel.
-This module is that algorithm — the framework's "ring" pattern, riding
-ICI collectives (``psum``/``all_gather``) inside ``shard_map``.
+matrix is 17 GB in f32, and it grows as N^2 past any one device's
+memory.  XLA's ``jnp.linalg.cholesky`` on a sharded operand gathers it
+to every device, so the way to factor past one device is a hand-blocked
+SPMD algorithm where each device only ever holds its N^2/D share plus
+one N x b panel.  This module is that algorithm, riding collectives
+(``psum``/``all_gather``) inside ``shard_map``.
 
 Layout: pad N to m*b with m divisible by D; device d owns row-blocks
 ``g = d + l*D`` (block-cyclic, so late panels still spread over all
 devices), stored as ``A[l, j]`` = (b, b) block at global (g, j).  The
 kernel matrix is built *directly into this layout* — each device
 evaluates the covariance only for its own rows, so no global N x N array
-ever exists (this is "the kernel matrix tiled through HBM").
+ever exists.
 
 Right-looking factorization, for k = 0..m-1:
   1. replicate the diagonal block via masked ``psum``; all devices
@@ -22,7 +22,7 @@ Right-looking factorization, for k = 0..m-1:
      triangular solves);
   3. ``all_gather`` the column-k panel (N x b) — the one collective that
      moves O(N b) data per step;
-  4. rank-b SYRK trailing update of owned blocks (batched MXU matmuls).
+  4. rank-b SYRK trailing update of owned blocks (batched matmuls).
      Rows at or above k contribute zero panel entries, so no masking is
      needed; upper-triangle blocks accumulate garbage that is never read.
 
@@ -74,17 +74,9 @@ def _build_local_blocks(kernel, x_pad, own_g, n, b, m, noise, jitter):
     """
     xr = x_pad.reshape(m, b)
     x_own = xr[own_g].reshape(-1)  # (m_loc * b,)
-    # build the strip with the Pallas tile kernel when the kernel has a
-    # tile form: each (bm, bn) tile of K materializes straight into the
-    # output with no (m_loc*b x n_pad) difference-matrix intermediate —
-    # at config-#4 scale the jnp path roughly doubled per-device build
-    # memory (VERDICT r1 item 6)
-    try:
-        from gaussian_processes_tpu.ops.pairwise import pairwise_matrix
-
-        Kl = pairwise_matrix(kernel, x_own, x_pad)  # (m_loc*b, n_pad)
-    except TypeError:
-        Kl = kernel(x_own, x_pad)  # jnp fallback (e.g. ARD trees)
+    # XLA fuses the pairwise difference into the kernel's elementwise
+    # form, so no difference matrix is materialized
+    Kl = kernel(x_own, x_pad)  # (m_loc*b, n_pad)
     m_loc = own_g.shape[0]
     A = Kl.reshape(m_loc, b, m, b).transpose(0, 2, 1, 3)  # (m_loc, m, b, b)
 

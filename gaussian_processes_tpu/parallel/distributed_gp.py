@@ -2,9 +2,9 @@
 
 The reference is single-process (SURVEY.md §3); scaling N is this
 framework's analogue of "long context" (SURVEY.md §6.7): the N x N kernel
-matrix at N=65k is 16.9 GB in f32, so for multi-chip runs K is 2-D
+matrix at N=65k is 16.9 GB in f32, so for multi-device runs K is 2-D
 block-sharded over a ``Mesh(('i','j'))`` and the Cholesky/solves run as
-XLA's distributed factorization with collectives over ICI (SURVEY.md
+XLA's distributed factorization with collectives (SURVEY.md
 §6.7c).  The tensor-parallel axis of this framework.
 
 Design: pure ``jit`` + ``NamedSharding`` constraints — we annotate where K
@@ -56,7 +56,7 @@ def fit_sharded(
     K is constrained to P(i, j) so the kernel build runs fully parallel
     (each device computes its own block from the replicated x) and the
     factorization proceeds with XLA collectives instead of a gather to
-    one chip.
+    one device.
     """
     repl = NamedSharding(mesh, P())
     x = jax.device_put(jnp.asarray(x), repl)

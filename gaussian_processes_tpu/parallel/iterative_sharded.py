@@ -1,6 +1,6 @@
 """Row-sharded matrix-free GP inference over a device mesh.
 
-The multi-chip extension of ``models/iterative_gp.py`` (SURVEY.md §6.7c
+The multi-device extension of ``models/iterative_gp.py`` (SURVEY.md §6.7c
 taken past the dense block-cyclic path): the n training rows are sharded
 over a 1-D mesh, every device builds only its (n/D, block) kernel strips
 on the fly, and the whole preconditioned-CG + SLQ machinery runs INSIDE
@@ -20,9 +20,9 @@ count only changes floating-point reduction order.  The parity test
 (tests/test_iterative_sharded.py) checks alpha/lml against
 ``fit_iterative`` with identical probes on the 8-device CPU mesh.
 
-Memory per device is O(n·block/D + n·rank/D): with D chips, config #4's
-N=65536 preconditioned fit that takes 6.35 s on one chip (BASELINE.md)
-shards both the matvec FLOPs and the preconditioner storage D ways.
+Memory per device is O(n·block/D + n·rank/D): with D devices, config
+#4's N=65536 preconditioned fit shards both the matvec FLOPs and the
+preconditioner storage D ways.
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ def _pivoted_cholesky_sharded(
     L0 = jnp.zeros((n_loc, rank), dtype)
     # 1e3*eps, matching ops/krylov.py::pivoted_cholesky: the 10*eps
     # floor was measured to admit ~100 junk clamped-pivot columns on
-    # TPU f32 at n~1e5 (poisoned Woodbury preconditioner, CG 0.65 vs
+    # accelerator f32 at n~1e5 (poisoned Woodbury preconditioner, CG 0.65 vs
     # 6e-4) — the sharded copy must freeze at the same rank or sharded
     # and unsharded results diverge
     floor = lax.pmax(jnp.max(d0), axis) * jnp.asarray(

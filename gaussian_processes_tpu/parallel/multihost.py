@@ -1,11 +1,10 @@
 """Multi-host runtime bring-up and host-local checkpoint naming.
 
-SURVEY.md §6.8: multi-host TPU runs are brought up with
-``jax.distributed.initialize`` (the XLA runtime then drives ICI within a
-slice and DCN across hosts — no NCCL/MPI layer exists or is needed).
-This wrapper is idempotent, no-ops in single-process settings, and
-degrades cleanly on CPU test rigs, so the same launch script works on a
-laptop, one v5e host, or a pod slice (BASELINE.json:11).
+SURVEY.md §6.8: multi-process runs are brought up with
+``jax.distributed.initialize`` (XLA then hands collectives to NCCL on
+GPU hosts).  This wrapper is idempotent, no-ops in single-process
+settings, and degrades cleanly on CPU test rigs, so the same launch
+script works on a laptop, one GPU host, or several (docs/multihost.md).
 """
 
 from __future__ import annotations
@@ -25,9 +24,7 @@ def initialize_cluster(
     """Bring up jax.distributed if a multi-process env is configured.
 
     Resolution order: explicit args > JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars > TPU pod metadata
-    (argument-free ``initialize()``) when more than one process is
-    implied > single-process no-op.
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars > single-process no-op.
 
     Returns a summary dict (process_index, process_count, device counts).
     """
@@ -44,25 +41,21 @@ def initialize_cluster(
         int(env_pid) if env_pid else None
     )
 
-    if not _initialized:
-        if coordinator_address and num_processes and num_processes > 1:
-            if process_id is None:
-                # defaulting to 0 on every host would register duplicate
-                # process ids and hang the coordinator
-                raise ValueError(
-                    "multi-process bring-up needs an explicit per-host "
-                    "process_id (or JAX_PROCESS_ID in the environment)"
-                )
-            jax.distributed.initialize(
-                coordinator_address=coordinator_address,
-                num_processes=num_processes,
-                process_id=process_id,
+    if (not _initialized and coordinator_address and num_processes
+            and num_processes > 1):
+        if process_id is None:
+            # defaulting to 0 on every host would register duplicate
+            # process ids and hang the coordinator
+            raise ValueError(
+                "multi-process bring-up needs an explicit per-host "
+                "process_id (or JAX_PROCESS_ID in the environment)"
             )
-            _initialized = True
-        elif os.environ.get("TPU_WORKER_HOSTNAMES"):
-            # pod slice: worker topology comes from TPU metadata
-            jax.distributed.initialize()
-            _initialized = True
+        jax.distributed.initialize(
+            coordinator_address=coordinator_address,
+            num_processes=num_processes,
+            process_id=process_id,
+        )
+        _initialized = True
 
     return {
         "process_index": jax.process_index(),

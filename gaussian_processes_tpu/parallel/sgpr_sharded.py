@@ -1,6 +1,6 @@
 """Data-sharded SGPR over a device mesh.
 
-The multi-chip extension of models/sgpr.py: the n training rows are
+The multi-device extension of models/sgpr.py: the n training rows are
 sharded over a 1-D mesh and each device runs the blocked O(n m^2 / D)
 moment sweep on its own rows; ONE ``psum`` of the four accumulators
 (C (m, m), b (m,), ||y||^2, tr K_ff) is the only communication —

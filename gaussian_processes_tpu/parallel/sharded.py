@@ -1,10 +1,10 @@
 """Chain-parallel NUTS / ChEES-HMC over a device mesh.
 
 The reference has no parallelism at all (SURVEY.md §3 "Parallelism &
-communication inventory": none).  This module is the TPU-native data/chain
+communication inventory": none).  This module is the data/chain
 parallel axis required by BASELINE.json:9,11: sampler chains sharded over
 a ``jax.sharding.Mesh`` with ``shard_map``, warmup adaptation pooled
-across the *entire* chain population via XLA collectives over ICI/DCN —
+across the *entire* chain population via XLA collectives —
 ``pmean`` of acceptance statistics and an exact cross-device Welford merge
 (``psum`` of M2 corrections) — so 1024 sharded chains adapt exactly as one
 vectorized population (the NCCL/MPI analogue, SURVEY.md §6.8).
@@ -13,7 +13,7 @@ Round-2 redesign (VERDICT r1 item 3): the sharded samplers are split into
 ``init / warmup / collect`` stages carried by an explicit sharded state
 pytree, with **host-level chunking between shard_map dispatches** and the
 final state exposed, so the flagship 1024-chain run is checkpointable,
-resumable, and watchdog-safe — the same durability the single-device path
+resumable, and short per dispatch — the same durability the single-device path
 had in round 1 (SURVEY.md §6.3/§6.4).  Chunking is semantics-preserving:
 the carry crossing the host boundary is the same pytree the on-device
 scan would carry.
@@ -215,7 +215,7 @@ def warmup_nuts_sharded(
     ``chunk_size`` splits the warmup scan into several shorter device
     dispatches *at host level, between shard_map calls* — semantically
     identical (the same pytree is the carry either way), but each
-    execution stays short (watchdog-safe) and the state can be
+    execution stays short and the state can be
     checkpointed between chunks.
     """
     if mesh is None:

@@ -15,7 +15,9 @@ from gaussian_processes_tpu.utils.config import (
     make_kernel,
 )
 from gaussian_processes_tpu.utils.metrics import MetricsLogger, summarize_nuts
+from gaussian_processes_tpu.utils.compile_cache import enable_compile_cache
 from gaussian_processes_tpu.utils.profiling import (
+    device_peaks,
     fit_flops,
     roofline,
     timed,
@@ -37,6 +39,8 @@ __all__ = [
     "make_kernel",
     "MetricsLogger",
     "summarize_nuts",
+    "device_peaks",
+    "enable_compile_cache",
     "fit_flops",
     "roofline",
     "timed",

@@ -112,14 +112,14 @@ CONFIGS = {
         nuts=NUTSConfig(n_chains=64, num_warmup=500, num_samples=1000),
     ),
     # 3b. same workload with the tree-free ChEES-HMC sampler (the
-    # TPU-first alternative; ~13x NUTS effective throughput on chip)
+    # vectorized alternative to NUTS)
     "config3_chees_64": RunConfig(
         name="config3_chees_64",
         task="chees",
         data=DataConfig(n=500),
         nuts=NUTSConfig(n_chains=64, num_warmup=500, num_samples=1000),
     ),
-    # 4. large-N exact GP: N=65k blocked Cholesky, K tiled through HBM
+    # 4. large-N exact GP: N=65k block-cyclic Cholesky over the mesh
     "config4_large_n": RunConfig(
         name="config4_large_n",
         task="fit_large",
@@ -138,7 +138,7 @@ CONFIGS = {
     # FFT leapfrogs, deterministic (benchmarks/demo_bayes1m.py)
     # beyond the five: sparse SGPR (Titsias bound) at 2^20 SCATTERED
     # points, m=1024 kmeans inducing centers — the no-structure,
-    # no-CG large-N regime (models/sgpr.py; ~0.17 s/fit on one chip)
+    # no-CG large-N regime (models/sgpr.py)
     "sparse1m_sgpr": RunConfig(
         name="sparse1m_sgpr",
         task="sgpr",

@@ -3,8 +3,7 @@
 The reference reports nothing beyond return values; this framework's
 observability surface is a lightweight JSONL logger: one JSON object per
 event to stdout and/or a file — steps/s, samples/s, acceptance rate,
-divergence count, step size, per-phase wall-clock.  BASELINE.md numbers
-are filled from these records.
+divergence count, step size, per-phase wall-clock.
 """
 
 from __future__ import annotations

@@ -2,8 +2,7 @@
 
 ``jax.profiler`` traces around the hot phases (kernel build / Cholesky /
 sampler step) plus a roofline accounting helper: achieved FLOP/s of the
-fit path vs the chip's peak, the evidence BASELINE.json:5 asks for
-("speed-of-light per chip").
+fit path against the device's published peak.
 """
 
 from __future__ import annotations
@@ -27,9 +26,38 @@ def trace(profile_dir: str | None):
 named_scope = jax.named_scope  # re-export for phase annotations
 
 
-#: advertised dense peak of the one attached chip, bf16/f32 via MXU.
-#: v5e: 394 TFLOP/s bf16, ~98 TFLOP/s f32 (public spec sheet numbers).
-V5E_PEAK_FLOPS = {"bfloat16": 394e12, "float32": 98e12}
+#: Published dense peaks (no sparsity) keyed by ``device_kind``.  Source:
+#: NVIDIA H100 Tensor Core GPU data sheet, SXM5 part, at its 700 W power
+#: limit — a card set below 700 W cannot hold these clocks under load.
+#: FLOP/s per dtype; "float32" is the CUDA-core (non-tensor) rate,
+#: "tf32" the tensor-core rate an f32 matmul gets at DEFAULT precision.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "flops": {
+            "bfloat16": 989e12,
+            "float16": 989e12,
+            "tf32": 495e12,
+            "float32": 67e12,
+            "float64": 67e12,
+        },
+        "hbm_bytes_per_s": 3.35e12,
+    },
+}
+
+
+def device_peaks(device_kind: str | None = None) -> dict:
+    """The peak table entry of ``device_kind`` (default: device 0's).
+
+    An unknown device is an error, never a default.
+    """
+    kind = device_kind or jax.devices()[0].device_kind
+    try:
+        return PEAKS[kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device_kind {kind!r}; add them to "
+            "utils/profiling.py PEAKS with their source"
+        ) from None
 
 
 def fit_flops(n: int) -> float:
@@ -38,10 +66,11 @@ def fit_flops(n: int) -> float:
     return 10.0 * n * n + n ** 3 / 3.0 + 2.0 * n * n
 
 
-def roofline(n: int, wall_s: float, dtype: str = "float32") -> dict:
+def roofline(n: int, wall_s: float, dtype: str = "float32",
+             device_kind: str | None = None) -> dict:
     """Achieved vs peak FLOP/s for an N-point fit that took wall_s."""
     achieved = fit_flops(n) / wall_s
-    peak = V5E_PEAK_FLOPS.get(dtype, V5E_PEAK_FLOPS["float32"])
+    peak = device_peaks(device_kind)["flops"][dtype]
     return {
         "n": n,
         "wall_s": wall_s,

@@ -3,10 +3,10 @@
  * Role parity with the reference's only native code (SURVEY.md §3 C7/C8:
  * Cython extensions whose job is fast elementwise evaluation of the
  * kernel and its hyperparameter derivatives over all (i, j) pairs).  On
- * TPU that role is played by the Pallas tile kernel (ops/pairwise.py);
- * this extension is the *host-side* native path: the CPU oracle the test
- * suite cross-checks against, and the honest same-code-shape denominator
- * for the CPU-vs-TPU baseline (benchmarks/cpu_baseline.py).
+ * the device XLA fuses that loop; this extension is the *host-side*
+ * native path: the CPU oracle the test suite cross-checks against, and
+ * the same-code-shape denominator for the CPU baseline
+ * (benchmarks/cpu_baseline.py).
  *
  * All functions take C-contiguous float64 numpy arrays and fill
  * preallocated outputs, exactly like the reference's `K(out, x1, x2, ...)`

@@ -117,32 +117,3 @@ def test_ard_nuts_smoke():
     draws = np.asarray(res.positions)
     assert np.all(np.isfinite(draws))
     assert float(np.asarray(res.diverging).mean()) < 0.1
-
-
-def test_ard_tile_builder_twin():
-    """The D-dim ARD tile kernel (per-dimension broadcast accumulation,
-    no (n, m, D) intermediate) must match the jnp path exactly."""
-    from gaussian_processes_tpu.ops.pairwise import (
-        pairwise_matrix,
-        pairwise_matrix_ard,
-    )
-
-    rng = np.random.default_rng(0)
-    k = _kernel()
-    D = np.asarray(k.w).shape[0]
-    x1 = rng.uniform(-2, 2, (90, D))
-    x2 = rng.uniform(-2, 2, (50, D))
-    got = pairwise_matrix_ard(k, x1, x2, block=(32, 64), interpret=True)
-    want = k(jnp.asarray(x1), jnp.asarray(x2))
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-14, atol=1e-15)
-    got = pairwise_matrix_ard(k, x1, x1, noise=0.2, jitter=1e-7,
-                              block=(32, 64), interpret=True)
-    want = np.asarray(k(jnp.asarray(x1), jnp.asarray(x1))) + (
-        0.2**2 + 1e-7
-    ) * np.eye(90)
-    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-13, atol=1e-14)
-
-    # the 1-D tile entry point still refuses ARD (it has no 1-D k_fn)
-    with pytest.raises(TypeError, match="ARD"):
-        pairwise_matrix(k, np.ones((4, D)), np.ones((4, D)))

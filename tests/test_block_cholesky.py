@@ -73,3 +73,49 @@ def test_blockcyclic_predict_matches_dense():
     m, v = predict_diag(post, xo)
     np.testing.assert_allclose(np.asarray(m_d), np.asarray(m), rtol=1e-8, atol=1e-10)
     np.testing.assert_allclose(np.asarray(v_d), np.asarray(v), rtol=1e-6, atol=1e-10)
+
+
+@pytest.mark.parametrize("n,b", [(128, 8), (150, 8)])
+@pytest.mark.parametrize("family", ["se", "se*periodic"])
+def test_build_local_blocks_matches_dense(n, b, family):
+    """Each device's row-block strip of K + (s^2 + jitter) I, built with
+    plain jnp, reassembles into the dense matrix; padded rows/cols are
+    identity (n = 150 is not a multiple of D*b)."""
+    from jax.sharding import PartitionSpec as P
+
+    from gaussian_processes_tpu.models.composite import ProductKernel
+    from gaussian_processes_tpu.parallel.block_cholesky import (
+        _build_local_blocks,
+        _padded_dims,
+    )
+
+    se = GaussianKernel(h=jnp.asarray(1.2), w=jnp.asarray(0.7))
+    kernel = se if family == "se" else ProductKernel(
+        se, PeriodicKernel(h=jnp.asarray(1.0), w=jnp.asarray(1.0),
+                           p=jnp.asarray(0.5)))
+    mesh = _mesh()
+    D = 8
+    m, n_pad = _padded_dims(n, D, b)
+    m_loc = m // D
+    x, _ = _data(n)
+    x_pad = jnp.zeros(n_pad).at[:n].set(x)
+    noise, jitter = 0.2, 1e-6
+
+    def local(x_pad):
+        own_g = jax.lax.axis_index("shard") + jnp.arange(m_loc) * D
+        return _build_local_blocks(kernel, x_pad, own_g, n, b, m,
+                                   jnp.asarray(noise), jitter)
+
+    blocks = jax.jit(jax.shard_map(local, mesh=mesh, in_specs=P(),
+                                   out_specs=P("shard"), check_vma=False))(x_pad)
+    assert blocks.shape == (m, m, b, b)
+    dense = np.zeros((n_pad, n_pad))
+    for d in range(D):
+        for l in range(m_loc):
+            g = d + l * D
+            row = np.asarray(blocks[d * m_loc + l])  # (m, b, b)
+            dense[g * b:(g + 1) * b] = row.transpose(1, 0, 2).reshape(b, n_pad)
+    want = np.eye(n_pad)
+    want[:n, :n] = np.asarray(kernel(jnp.asarray(x), jnp.asarray(x))) + (
+        noise**2 + jitter) * np.eye(n)
+    np.testing.assert_allclose(dense, want, rtol=1e-13, atol=1e-14)

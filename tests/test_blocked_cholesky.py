@@ -1,6 +1,6 @@
-"""Twin tests for the MXU-blocked Cholesky (ops/blocked_cholesky.py).
+"""Twin tests for the GEMM-blocked Cholesky (ops/blocked_cholesky.py).
 
-The TPU analogue of the reference's "native code matches math" gate
+The analogue of the reference's "native code matches math" gate
 (SURVEY.md §5 item 2): the blocked factorization must match
 ``jnp.linalg.cholesky`` in f64 at 1e-8 relative (VERDICT r1 item 1's
 acceptance bar), across sizes that are and are not multiples of the base
@@ -17,7 +17,6 @@ import scipy.linalg
 from gaussian_processes_tpu.ops.blocked_cholesky import (
     cholesky_blocked,
     cholesky_solve_blocked,
-    choose_cholesky,
     solve_triangular_blocked,
 )
 
@@ -61,8 +60,8 @@ def test_leftlook_matches_xla_cholesky_f64(n, kind):
 @pytest.mark.parametrize("n", [512, 1100, 2048])
 @pytest.mark.parametrize("super_base", [512, 1024])
 def test_leftlook2_matches_xla_cholesky_f64(n, super_base):
-    # two-level superpanel skeleton (measured slower on chip — kept as
-    # a tested, documented variant; see _chol_leftlook2's verdict)
+    # two-level superpanel skeleton (kept as a tested, documented
+    # variant; ROADMAP D3 decides its fate)
     rng = np.random.default_rng(n + 2)
     A = jnp.asarray(_spd(n, rng, "kernel"))
     L_ref = jnp.linalg.cholesky(A)
@@ -140,60 +139,29 @@ def test_autodiff_through_blocked_cholesky():
     np.testing.assert_allclose(float(g_blocked), float(g_xla), rtol=1e-7)
 
 
-@pytest.mark.parametrize("n", [128, 256, 640])
-def test_pallas_base_cholesky_twin(n):
-    """The in-VMEM Pallas column-loop panel factorization (interpret mode
-    on CPU) must match XLA's cholesky to f64 round-off, standalone and
-    inside the recursion."""
-    rng = np.random.default_rng(n)
-    A = jnp.asarray(_spd(n, rng, "random"))
-    L_ref = jnp.linalg.cholesky(A)
-    L = cholesky_blocked(A, base=128, base_impl="pallas")
-    rel = jnp.linalg.norm(L - L_ref) / jnp.linalg.norm(L_ref)
-    assert float(rel) < 1e-10
-    assert float(jnp.abs(jnp.triu(L, 1)).max()) == 0.0
-
-
-def test_pallas_base_cholesky_grad():
-    """custom_vjp through the Pallas base (bwd re-derives via XLA's
-    cholesky on L L^T) matches grad through the pure-XLA path."""
-    rng = np.random.default_rng(2)
-    x = jnp.asarray(np.sort(rng.uniform(-1, 1, 200)))
-    y = jnp.asarray(np.sin(3 * np.asarray(x)))
-
-    def lml(w, base_impl):
-        d = x[:, None] - x[None, :]
-        K = jnp.exp(-0.5 * d * d / (w * w)) + 0.01 * jnp.eye(200)
-        L = cholesky_blocked(K, base=128, base_impl=base_impl)
-        alpha = cholesky_solve_blocked(L, y, base=128)
-        return -0.5 * y @ alpha - jnp.sum(jnp.log(jnp.diagonal(L)))
-
-    g_p = jax.grad(lambda w: lml(w, "pallas"))(0.6)
-    g_x = jax.grad(lambda w: lml(w, "xla"))(0.6)
-    np.testing.assert_allclose(float(g_p), float(g_x), rtol=1e-8)
-
-
-def test_choose_cholesky_dispatch():
-    assert choose_cholesky(500, backend="cpu") is jnp.linalg.cholesky
-    assert choose_cholesky(16384, backend="cpu") is jnp.linalg.cholesky
-    assert choose_cholesky(500, backend="tpu") is jnp.linalg.cholesky
-    assert choose_cholesky(16384, backend="tpu") is cholesky_blocked
-
-
 def test_choose_solve_dispatch_and_parity():
-    """choose_solve routes by (backend, n) and both branches solve the
-    same system to f64 tightness (VERDICT r2 item 1: the blocked TRSM is
-    now the production solve on TPU at large n)."""
-    from gaussian_processes_tpu.ops.blocked_cholesky import (
-        _blocked_solve,
-        _xla_solve,
-        choose_solve,
-    )
+    """choose_solve routes by n and right-hand-side count, and both
+    branches solve the same system to f64 tightness."""
+    import jax
 
-    assert choose_solve(500, backend="cpu") is _xla_solve
-    assert choose_solve(16384, backend="cpu") is _xla_solve
-    assert choose_solve(500, backend="tpu") is _xla_solve
-    assert choose_solve(16384, backend="tpu") is _blocked_solve
+    from gaussian_processes_tpu.ops import blocked_cholesky as bc
+
+    assert bc.choose_solve(500) is bc._xla_solve
+    assert bc.choose_solve(16384) is bc._measured_solve
+
+    # the per-call choice follows the static RHS count
+    traced = []
+    real = {"xla": bc._xla_solve, "blocked": bc._blocked_solve}
+    try:
+        bc._xla_solve = lambda L, B, trans=False: traced.append("xla") or B
+        bc._blocked_solve = lambda L, B, trans=False: traced.append("blocked") or B
+        eye = jnp.eye(4)
+        for B in (jnp.ones(4), jnp.ones((4, 5)), jnp.ones((4, bc._WIDE_RHS))):
+            jax.eval_shape(lambda B: bc._measured_solve(eye, B), B)
+    finally:
+        bc._xla_solve, bc._blocked_solve = real["xla"], real["blocked"]
+    assert traced == ["xla", "xla", "blocked"]
+    _blocked_solve, _xla_solve = bc._blocked_solve, bc._xla_solve
 
     rng = np.random.default_rng(3)
     n = 700  # not a multiple of the base: exercises the recursion splits

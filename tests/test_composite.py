@@ -98,32 +98,3 @@ def test_quasiperiodic_fit_and_gradients_end_to_end():
         jnp.concatenate([qp.params, jnp.asarray([0.2])])
     )
     np.testing.assert_allclose(np.asarray(g), np.asarray(auto), rtol=1e-8, atol=1e-10)
-
-
-def test_pallas_builder_composite_twin():
-    """Sum/Product trees now fuse into one tile body (VERDICT r1 item 7b);
-    the tile result must match the jnp path exactly."""
-    from gaussian_processes_tpu.ops.pairwise import (
-        pairwise_matrix,
-        pairwise_matrix_reference,
-    )
-
-    rng = np.random.default_rng(0)
-    x1 = np.sort(rng.uniform(-3, 3, 100))
-    x2 = np.sort(rng.uniform(-3, 3, 70))
-    for k in [
-        SumKernel(_se(), _per()),
-        ProductKernel(_se(), _per()),
-        ProductKernel(SumKernel(_se(), _per()), _se()),  # nested
-    ]:
-        got = pairwise_matrix(k, x1, x2, block=(32, 64), interpret=True)
-        want = pairwise_matrix_reference(k, x1, x2)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=1e-14, atol=1e-15)
-    # with the noise diagonal
-    k = ProductKernel(_se(), _per())
-    got = pairwise_matrix(k, x1, x1, noise=0.3, jitter=1e-6,
-                          block=(32, 64), interpret=True)
-    want = pairwise_matrix_reference(k, x1, x1, noise=0.3, jitter=1e-6)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-14, atol=1e-15)

@@ -48,7 +48,7 @@ def test_kernel_matvec_matches_dense():
 
 
 def test_kernel_matvec_fused_matches_dense():
-    # interpret-mode Pallas twin of the strip matvec: leaf, composite,
+    # interpreted Pallas twin of the strip matvec: leaf, composite,
     # and ARD kernels; (n,) and (n, r) right-hand sides; n not a
     # multiple of the tile (zero-padded edge tiles must not leak)
     from gaussian_processes_tpu import build_kxx
@@ -69,11 +69,13 @@ def test_kernel_matvec_fused_matches_dense():
     ]:
         assert supports_fused_matvec(k, x)
         K = build_kxx(k, x, s, jitter=1e-8)
-        got = kernel_matvec_fused(k, x, v, s, 1e-8, block=(128, 128))
+        got = kernel_matvec_fused(k, x, v, s, 1e-8, block=(128, 128),
+                                  interpret=True)
         np.testing.assert_allclose(
             np.asarray(got), np.asarray(K @ v), rtol=1e-9, atol=1e-11
         )
-        got1 = kernel_matvec_fused(k, x, v[:, 0], s, 1e-8, block=(128, 128))
+        got1 = kernel_matvec_fused(k, x, v[:, 0], s, 1e-8, block=(128, 128),
+                                   interpret=True)
         np.testing.assert_allclose(
             np.asarray(got1), np.asarray(K @ v[:, 0]), rtol=1e-9, atol=1e-11
         )
@@ -82,14 +84,15 @@ def test_kernel_matvec_fused_matches_dense():
     ard = ARDGaussianKernel(h=jnp.float64(1.1), w=jnp.asarray([0.8, 1.7]))
     assert supports_fused_matvec(ard, xd)
     K = ard(xd, xd) + (s**2 + 1e-8) * jnp.eye(300)
-    got = kernel_matvec_fused(ard, xd, v, s, 1e-8, block=(128, 128))
+    got = kernel_matvec_fused(ard, xd, v, s, 1e-8, block=(128, 128),
+                              interpret=True)
     np.testing.assert_allclose(
         np.asarray(got), np.asarray(K @ v), rtol=1e-9, atol=1e-11
     )
 
 
 def test_kernel_jacvec_fused_matches_strips():
-    # interpret-mode Pallas twin of the Jacobian strip contraction used
+    # interpreted Pallas twin of the Jacobian strip contraction used
     # by the matrix-free gradient: J_p @ U for each hyperparameter
     from gaussian_processes_tpu.models.periodic import PeriodicKernel
     from gaussian_processes_tpu.ops.pairwise import (
@@ -104,7 +107,7 @@ def test_kernel_jacvec_fused_matches_strips():
         assert supports_fused_jacvec(k, x)
         J = k.jacobian(x, x)  # (P, n, n)
         want = jnp.einsum("pnm,mr->pnr", J, U)
-        got = kernel_jacvec_fused(k, x, U, block=(128, 128))
+        got = kernel_jacvec_fused(k, x, U, block=(128, 128), interpret=True)
         np.testing.assert_allclose(
             np.asarray(got), np.asarray(want), rtol=1e-9, atol=1e-11
         )
@@ -208,7 +211,7 @@ def test_pivoted_cholesky_overrank_stays_sane():
     # f32, rank far beyond the kernel's effective rank: once the
     # residual diagonal hits f32 round-off, further pivots must freeze
     # to zero columns, not emit noise/clamped-pivot junk that poisons
-    # the Woodbury preconditioner (observed on-chip: a rank-2048 factor
+    # the Woodbury preconditioner (observed on an accelerator: a rank-2048 factor
     # of an effective-rank-~70 kernel broke CG convergence)
     kernel, x, y, s = _problem(n=200)
     wide = kernel.with_params(jnp.asarray([1.3, 2.5], jnp.float32))
@@ -218,8 +221,8 @@ def test_pivoted_cholesky_overrank_stays_sane():
     K = wide(x32, x32)
     rel = float(jnp.linalg.norm(K - L @ L.T) / jnp.linalg.norm(K))
     # the freeze floor is 1e3*eps of the max diagonal (raised from
-    # 10*eps after TPU-vs-CPU f32 round-off scatter let ~100 junk
-    # columns through on chip — see pivoted_cholesky), so the best
+    # 10*eps after cross-backend f32 round-off scatter let ~100 junk
+    # columns through — see pivoted_cholesky), so the best
     # achievable reconstruction is ~1e-4 relative, not 1e-5
     assert rel < 5e-4
     # the tail columns must be exactly zero (frozen), and the Woodbury
@@ -336,7 +339,7 @@ def test_fused_jacvec_gate_rejects_composites():
     assert pairwise.supports_fused_jacvec(GaussianKernel(1.0, 0.5), x)
     assert not pairwise.supports_fused_jacvec(ksum, x)
     with pytest.raises(TypeError):
-        pairwise.kernel_jacvec_fused(ksum, x, u)
+        pairwise.kernel_jacvec_fused(ksum, x, u, interpret=True)
     # and the dispatching caller runs the composite via the strip path
     from gaussian_processes_tpu.models.iterative_gp import (
         log_marginal_value_and_grad_iterative,

@@ -10,9 +10,7 @@ The surrogate log posterior built by ``make_log_posterior_iterative``
 3. yield the same hyperparameter posterior as dense-NUTS within
    Monte-Carlo error when sampled with ChEES.
 
-Runs on the CPU backend in f64 (conftest.py); the on-chip N=65k demo is
-driven by benchmarks/bench_iterative_posterior.py and recorded in
-BASELINE.md.
+Runs on the CPU backend in f64 (conftest.py).
 """
 
 import jax

@@ -1,6 +1,6 @@
 """f32-vs-f64 numerical parity (SURVEY.md §7 hard part 4).
 
-The TPU speed path runs f32 with diagonal jitter; these gates quantify
+The accelerator speed path runs f32 with diagonal jitter; these gates quantify
 the agreement with the f64 oracle at moderate N so the "matches the
 reference within explicit tolerances" claim is backed by a number, not a
 hope.  Tolerances are deliberately loose bounds on observed error

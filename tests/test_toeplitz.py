@@ -455,7 +455,7 @@ def test_whittle_analytic_noise_identifiable_at_scale_f32():
     # old relative clamp floored the model spectrum at ~1e-2 — erasing
     # the noise parameter from the high-frequency bins entirely (the
     # measured 1M-point failure: lp INCREASED as s -> 0, chains slid to
-    # s ~ 0.01 at lp +18k; BASELINE.md round-4 forensics).  The analytic
+    # s ~ 0.01 at lp +18k; round-4 forensics).  The analytic
     # spectrum keeps s^2 exact in every bin: the Whittle lml profile
     # over s must peak at the generative noise.
     from gaussian_processes_tpu.inference import make_log_posterior_whittle

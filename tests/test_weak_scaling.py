@@ -29,7 +29,7 @@ def test_sharding_overhead_efficiency_gate():
     # oversubscribed mesh (8 device threads on 4 cores) measures XLA-CPU
     # collective busy-waiting, not the sharding layer — measured round 4:
     # eff 1.19 at 2/4 devices vs 0.49 at 8 on this 4-core host
-    # (benchmarks/probe_shard_overhead.py, BASELINE.md round-4).
+    # (round-4 measurement).
     eff = constant_work_efficiency(
         n_chains=256, num_warmup=60, num_samples=60, verbose=True
     )
@@ -47,7 +47,7 @@ def test_sharding_overhead_8dev_oversubscribed_floor():
     # longer asserted at all.  Keep it asserted at a LOOSER documented
     # bound: the measured oversubscription collapse is 0.49-0.59 (XLA-CPU
     # collectives busy-waiting, 8 device threads on 4 cores —
-    # benchmarks/probe_shard_overhead.py, BASELINE.md round-4), so 0.30
+    # round-4 measurement), so 0.30
     # leaves ~40% headroom for host noise while still catching a genuine
     # sharding-layer regression (which would land far below).  On hosts
     # with >= 8 physical cores the mesh is not oversubscribed and the
